@@ -288,7 +288,7 @@ class SpaceChargeKick(Element):
         positions = xp_coordinates[..., [0, 2, 4]]
         grids = self._force_fields(flattened, positions, cell_size, grid_dimensions)
         normalized = (positions + grid_dimensions[..., None, :]) / cell_size[..., None, :]
-        (values,) = cic_kernels.gather_multi_3d(grids, normalized, cic_kernels.VALUE)
+        (values,) = cic_kernels.differentiable_gather(grids, normalized, cic_kernels.VALUE)
         forces = values * elementary_charge  # (B, 3, N)
 
         kick = torch.zeros_like(xp_coordinates)

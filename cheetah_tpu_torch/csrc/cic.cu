@@ -1,6 +1,6 @@
 // Multi-order cloud-in-cell (CIC) deposit and trilinear gather for Hopper.
 //
-// Built by cheetah_tpu_torch/ops/cic_kernels.py with
+// Built by cheetah_tpu_torch/ops/nvcc.py (wrappers in ops/cic_kernels.py) with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // into a shared library with a plain C interface, loaded with ctypes.
 //
@@ -16,12 +16,7 @@
 //            out[o, b, c, n] = sum_corners wx_o wy_o wt_o * grids[b, c, corner].
 //            The exact adjoint of the deposit at the same orders.
 //
-// Per axis, with i0 = floor(p) and f = p - i0, order 0 weighs corner i0 with
-// 1 - f and corner i0 + 1 with f; order 1 (the a.e. derivative) weighs them
-// -1 and +1. A corner outside [0, n - 1] weighs 0. The range is tested in
-// floating point BEFORE the conversion to int, so NaN, +-inf and huge
-// positions (for which the conversion is undefined) give weight 0 at every
-// corner; the JAX package parks such particles at -2 for the same reason.
+// The corner weights and the range test are in cic_common.cuh.
 //
 // Design. The TPU kernels build dense two-hot tiles in VMEM and contract
 // them on the MXU, with the deposit's grid accumulated in an output block
@@ -43,47 +38,20 @@
 // these simple kernels; a later PR can privatise a 32^3 grid in shared
 // memory (128 KB f32) per block.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "cic_common.cuh"
 
 namespace {
 
-constexpr int kMaxOrders = 8;
+using cic::Axis;
+using cic::corner_sum;
+using cic::gather_particle;
+using cic::kMaxOrders;
+using cic::make_axis;
+using cic::make_orders;
+using cic::OrderSet;
+using cic::valid_orders;
+
 constexpr int kThreads = 256;
-
-struct OrderSet {
-  int count;
-  int x[kMaxOrders];
-  int y[kMaxOrders];
-  int t[kMaxOrders];
-};
-
-template <typename T>
-struct Axis {
-  int i0;     // floor(p), valid only when v0 or v1
-  T f;        // p - floor(p)
-  bool v0;    // corner i0 lies on the grid
-  bool v1;    // corner i0 + 1 lies on the grid
-};
-
-template <typename T>
-__device__ __forceinline__ Axis<T> make_axis(T p, int n) {
-  Axis<T> a;
-  T fl = floor(p);
-  // Comparisons with NaN are false; +-inf and huge values fail the range.
-  a.v0 = (fl >= T(0)) && (fl <= T(n - 1));
-  a.v1 = (fl >= T(-1)) && (fl <= T(n - 2));
-  a.i0 = (a.v0 || a.v1) ? static_cast<int>(fl) : 0;
-  a.f = p - fl;
-  return a;
-}
-
-// Weight of corner `c` (0: i0, 1: i0 + 1) at derivative order `o`.
-template <typename T>
-__device__ __forceinline__ T weight(int o, int c, T f) {
-  if (o == 0) return c ? f : T(1) - f;
-  return c ? T(1) : T(-1);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -99,12 +67,12 @@ deposit_multi_kernel(const T* __restrict__ pos, const T* __restrict__ rows,
   const Axis<T> ax = make_axis(p[0], nx);
   const Axis<T> ay = make_axis(p[1], ny);
   const Axis<T> at = make_axis(p[2], nt);
-  if (!((ax.v0 || ax.v1) && (ay.v0 || ay.v1) && (at.v0 || at.v1))) return;
+  if (!(ax.any() && ay.any() && at.any())) return;
 
   const int64_t cells = static_cast<int64_t>(nx) * ny * nt;
   const int num_orders = orders.count;
   for (int c = 0; c < num_components; ++c) {
-    // Fully unrolled over kMaxOrders so that r[] and acc[] stay in registers.
+    // Fully unrolled over kMaxOrders so that r[] stays in registers.
     T r[kMaxOrders];
 #pragma unroll
     for (int o = 0; o < kMaxOrders; ++o) {
@@ -116,17 +84,10 @@ deposit_multi_kernel(const T* __restrict__ pos, const T* __restrict__ rows,
 #pragma unroll
     for (int corner = 0; corner < 8; ++corner) {
       const int cx = corner >> 2, cy = (corner >> 1) & 1, ct = corner & 1;
-      if (!((cx ? ax.v1 : ax.v0) && (cy ? ay.v1 : ay.v0) && (ct ? at.v1 : at.v0))) continue;
-      T acc = T(0);
-#pragma unroll
-      for (int o = 0; o < kMaxOrders; ++o) {
-        if (o < num_orders)
-          acc += r[o] * weight(orders.x[o], cx, ax.f) * weight(orders.y[o], cy, ay.f) *
-               weight(orders.t[o], ct, at.f);
-      }
+      if (!(ax.valid(cx) && ay.valid(cy) && at.valid(ct))) continue;
       const int64_t cell =
           (static_cast<int64_t>(ax.i0 + cx) * ny + (ay.i0 + cy)) * nt + (at.i0 + ct);
-      atomicAdd(grid + cell, acc);
+      atomicAdd(grid + cell, corner_sum(r, orders, cx, cy, ct, ax, ay, at));
     }
   }
 }
@@ -140,59 +101,10 @@ gather_multi_kernel(const T* __restrict__ grids, const T* __restrict__ pos,
   if (tid >= batch * num_particles) return;
   const int64_t b = tid / num_particles;
   const int64_t n = tid - b * num_particles;
-
-  const T* p = pos + tid * 3;
-  const Axis<T> ax = make_axis(p[0], nx);
-  const Axis<T> ay = make_axis(p[1], ny);
-  const Axis<T> at = make_axis(p[2], nt);
-
   const int64_t cells = static_cast<int64_t>(nx) * ny * nt;
-  const int num_orders = orders.count;
-  const int64_t plane = batch * num_components * num_particles;
-  for (int c = 0; c < num_components; ++c) {
-    const T* grid = grids + (b * num_components + c) * cells;
-    T acc[kMaxOrders];
-#pragma unroll
-    for (int o = 0; o < kMaxOrders; ++o) acc[o] = T(0);
-#pragma unroll
-    for (int corner = 0; corner < 8; ++corner) {
-      const int cx = corner >> 2, cy = (corner >> 1) & 1, ct = corner & 1;
-      if (!((cx ? ax.v1 : ax.v0) && (cy ? ay.v1 : ay.v0) && (ct ? at.v1 : at.v0))) continue;
-      const int64_t cell =
-          (static_cast<int64_t>(ax.i0 + cx) * ny + (ay.i0 + cy)) * nt + (at.i0 + ct);
-      const T value = __ldg(grid + cell);
-#pragma unroll
-      for (int o = 0; o < kMaxOrders; ++o) {
-        if (o < num_orders)
-          acc[o] += weight(orders.x[o], cx, ax.f) * weight(orders.y[o], cy, ay.f) *
-                  weight(orders.t[o], ct, at.f) * value;
-      }
-    }
-    const int64_t offset = (b * num_components + c) * num_particles + n;
-#pragma unroll
-    for (int o = 0; o < kMaxOrders; ++o) {
-      if (o < num_orders) out[o * plane + offset] = acc[o];
-    }
-  }
-}
-
-OrderSet make_orders(const int* orders, int num_orders) {
-  OrderSet set{};
-  set.count = num_orders;
-  for (int o = 0; o < num_orders; ++o) {
-    set.x[o] = orders[3 * o];
-    set.y[o] = orders[3 * o + 1];
-    set.t[o] = orders[3 * o + 2];
-  }
-  return set;
-}
-
-bool valid_orders(const int* orders, int num_orders) {
-  if (num_orders < 1 || num_orders > kMaxOrders) return false;
-  for (int i = 0; i < 3 * num_orders; ++i) {
-    if (orders[i] != 0 && orders[i] != 1) return false;
-  }
-  return true;
+  gather_particle(grids + b * num_components * cells, pos + tid * 3, out,
+                  batch * num_components * num_particles, b * num_components * num_particles + n,
+                  num_particles, num_components, nx, ny, nt, orders);
 }
 
 unsigned int num_blocks(int64_t work) {

@@ -21,25 +21,31 @@ are in bin space: corner ``i0 = floor(p)`` weighs ``1 - f`` and ``i0 + 1``
 weighs ``f``; corners off the grid, and every corner of a non-finite
 position, weigh 0.
 
-Dispatch: a wrapper given CPU tensors runs the plain version; given CUDA
-tensors it launches the kernel or raises. There is no fallback from the
-card to the plain version, and no bound on the grid size. Each wrapper
-counts its kernel launches in a plain integer attribute ``launches``.
+Dispatch, the rule of the JAX package (``pallas_cic.py:220-224``,
+``:300-305``): a grid that fails :func:`fits_untiled` and passes
+:func:`~cheetah_tpu_torch.ops.cic_tiled.tiled_bounds_ok` goes to the x-tiled
+pair of :mod:`cheetah_tpu_torch.ops.cic_tiled`; every other grid goes to the
+untiled pair here, which takes any grid size. A wrapper given CPU tensors
+runs the plain version of the chosen pair; given CUDA tensors it launches
+the chosen kernel or raises. There is no fallback from the card to a plain
+version. Each wrapper counts the launches of its own kernel in a plain
+integer attribute ``launches``.
+
+Gradients: :class:`GatherMulti` and :class:`DepositMulti` are the autograd
+closure of the pair (``pallas_cic.py:536-750``). Each backward calls the two
+Functions again, at the same or raised orders, so a backward, and a backward
+of a backward up to orders ``(1, 1, 1)``, runs on the kernels too.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import tempfile
-import threading
+import math
 from typing import Sequence
 
 import torch
+
+from cheetah_tpu_torch.ops.nvcc import CudaLibrary
 
 Orders = Sequence[tuple[int, int, int]]
 
@@ -48,89 +54,16 @@ VALUE = ((0, 0, 0),)
 
 MAX_ORDERS = 8
 
-_SOURCE = pathlib.Path(__file__).resolve().parent.parent / "csrc" / "cic.cu"
-_BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build"
-NVCC_FLAGS = (
-    "-gencode",
-    "arch=compute_90a,code=sm_90a",
-    "-std=c++17",
-    "-O3",
-    "-shared",
-    "-Xcompiler",
-    "-fPIC",
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_SIGNATURE = [_P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I32, _P, _I32, _P]
+LIBRARY = CudaLibrary(
+    "cic.cu", {"cic_deposit_multi": _SIGNATURE, "cic_gather_multi": _SIGNATURE}
 )
 
-_library: ctypes.CDLL | None = None
-_library_lock = threading.Lock()
 
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return os.path.join(cuda_home, "bin", "nvcc")
-
-
-def library_path() -> pathlib.Path:
-    """Where the built library lives; the name carries a hash of the source
-    and flags, so an edited source is rebuilt."""
-    digest = hashlib.sha256(_SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return _BUILD_DIR / f"libcic_{digest.hexdigest()[:16]}.so"
-
-
-def build(verbose: bool = False) -> pathlib.Path:
-    """Compile ``csrc/cic.cu`` with nvcc unless the library exists already.
-
-    :param verbose: Also ask ptxas for each kernel's registers and spills
-        (``-Xptxas -v``) and print the compiler's output.
-    """
-    target = library_path()
-    if target.exists() and not verbose:
-        return target
-    target.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
-    os.close(fd)
-    command = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", tmp, str(_SOURCE)]
-    result = subprocess.run(command, capture_output=True, text=True)
-    if result.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({result.returncode}):\n{result.stdout}\n{result.stderr}"
-        )
-    if verbose:
-        print(result.stdout + result.stderr, flush=True)
-    os.replace(tmp, target)
-    return target
-
-
-def _load() -> ctypes.CDLL:
-    global _library
-    with _library_lock:
-        if _library is None:
-            library = ctypes.CDLL(str(build()))
-            pointer, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-            for name in (
-                "cic_deposit_multi_f32",
-                "cic_deposit_multi_f64",
-                "cic_gather_multi_f32",
-                "cic_gather_multi_f64",
-            ):
-                function = getattr(library, name)
-                function.argtypes = [
-                    pointer, pointer, pointer, i64, i64, i32, i32, i32, i32,
-                    pointer, i32, pointer,
-                ]
-                function.restype = ctypes.c_int
-            _library = library
-        return _library
-
-
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-
-
-def _check_orders(orders: Orders) -> tuple[tuple[int, int, int], ...]:
+def check_orders(orders: Orders) -> tuple[tuple[int, int, int], ...]:
+    """The orders as a tuple of ``(ox, oy, ot)`` int triples; raises on more
+    than :data:`MAX_ORDERS` or on an order other than 0 or 1."""
     orders = tuple(tuple(int(v) for v in order) for order in orders)
     if not 1 <= len(orders) <= MAX_ORDERS:
         raise ValueError(f"Between 1 and {MAX_ORDERS} orders are supported: {orders}")
@@ -139,24 +72,11 @@ def _check_orders(orders: Orders) -> tuple[tuple[int, int, int], ...]:
     return orders
 
 
-def _launch(name: str, dtype: torch.dtype, device: torch.device, tensors, sizes, orders):
-    """Call the C entry point ``name`` for ``dtype`` on the current stream of
-    ``device`` and raise if it reports a CUDA error."""
-    if dtype not in _SUFFIX:
-        raise TypeError(f"The CIC kernels take float32 or float64, not {dtype}.")
-    function = getattr(_load(), f"{name}_{_SUFFIX[dtype]}")
+def orders_argument(orders) -> tuple[ctypes.c_void_p, int]:
+    """The orders as the C entry points take them: a pointer to ``3 * O``
+    ints and ``O``. The pointer keeps its array alive."""
     flat = (ctypes.c_int * (3 * len(orders)))(*(v for order in orders for v in order))
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        status = function(
-            *(tensor.data_ptr() for tensor in tensors),
-            *sizes,
-            ctypes.cast(flat, ctypes.c_void_p),
-            len(orders),
-            stream,
-        )
-    if status != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {status}.")
+    return ctypes.cast(flat, ctypes.c_void_p), len(orders)
 
 
 def _check_device(*tensors: torch.Tensor) -> str:
@@ -213,49 +133,45 @@ def _corner_terms(normalized: torch.Tensor, histogram_shape, orders):
                 yield cell, valid, weights
 
 
-def deposit_multi_3d_reference(
-    normalized: torch.Tensor,
-    rows: torch.Tensor,
-    histogram_shape: tuple[int, int, int],
-    orders: Orders,
-) -> torch.Tensor:
-    """Plain version of :func:`deposit_multi_3d` with ``index_add_``."""
-    orders = _check_orders(orders)
+def deposit_cells(normalized, rows, histogram_shape, orders, num_cells, cell_offset=None):
+    """``index_add_`` of every corner term into ``(B, C, num_cells)``: the
+    deposit into a grid of ``histogram_shape`` cells, shifted by
+    ``cell_offset (B, N)`` per particle when given (the tiled plain version
+    deposits each particle into its tile's window this way)."""
     batch, num_orders, num_components, num_particles = rows.shape
-    cells = histogram_shape[0] * histogram_shape[1] * histogram_shape[2]
     out = torch.zeros(
-        batch * num_components * cells, dtype=rows.dtype, device=rows.device
+        batch * num_components * num_cells, dtype=rows.dtype, device=rows.device
     )
     base = (
         torch.arange(batch * num_components, device=rows.device).view(
             batch, num_components, 1
         )
-        * cells
+        * num_cells
     )
     for cell, valid, weights in _corner_terms(normalized, histogram_shape, orders):
+        if cell_offset is not None:
+            cell = cell + cell_offset
         value = sum(rows[:, o] * weights[o][:, None, :] for o in range(num_orders))
         value = torch.where(valid[:, None, :], value, torch.zeros_like(value))
         index = base + cell[:, None, :]
         out.index_add_(0, index.reshape(-1), value.reshape(-1))
-    return out.view(batch, num_components, *histogram_shape)
+    return out.view(batch, num_components, num_cells)
 
 
-def gather_multi_3d_reference(
-    grids: torch.Tensor, normalized: torch.Tensor, orders: Orders
-) -> tuple[torch.Tensor, ...]:
-    """Plain version of :func:`gather_multi_3d` with a flat ``gather``."""
-    orders = _check_orders(orders)
-    batch, num_components = grids.shape[:2]
-    histogram_shape = tuple(grids.shape[2:])
-    flat = grids.reshape(batch, num_components, -1)
+def gather_cells(flat, normalized, histogram_shape, orders, cell_offset=None):
+    """Flat ``gather`` of every corner from ``flat (B, C, M)``: the gather
+    from a grid of ``histogram_shape`` cells, shifted by ``cell_offset (B,
+    N)`` per particle when given."""
+    batch, num_components = flat.shape[:2]
     outs = [
         torch.zeros(
-            batch, num_components, normalized.shape[1], dtype=grids.dtype,
-            device=grids.device,
+            batch, num_components, normalized.shape[1], dtype=flat.dtype, device=flat.device
         )
         for _ in orders
     ]
     for cell, valid, weights in _corner_terms(normalized, histogram_shape, orders):
+        if cell_offset is not None:
+            cell = cell + cell_offset
         index = cell[:, None, :].expand(batch, num_components, -1)
         value = torch.gather(flat, 2, index)
         for out, weight in zip(outs, weights):
@@ -264,28 +180,56 @@ def gather_multi_3d_reference(
     return tuple(outs)
 
 
-# ---------------------------------------------------------------------------
-# Wrappers
-# ---------------------------------------------------------------------------
-
-
-def deposit_multi_3d(
+def deposit_multi_3d_reference(
     normalized: torch.Tensor,
     rows: torch.Tensor,
     histogram_shape: tuple[int, int, int],
     orders: Orders,
 ) -> torch.Tensor:
-    """Multi-order CIC deposit: bin-space positions ``normalized (B, N, 3)``
-    and per-order row blocks ``rows (B, O, C, N)`` -> the grid ``(B, C, nx,
-    ny, nt)``, summed over the orders.
+    """Plain version of :func:`deposit_multi_3d` with ``index_add_``."""
+    orders = check_orders(orders)
+    flat = deposit_cells(normalized, rows, histogram_shape, orders, math.prod(histogram_shape))
+    return flat.view(*flat.shape[:2], *histogram_shape)
 
-    CUDA tensors launch ``deposit_multi_kernel`` (atomic adds, so the sum
-    order, and with it the last bits, change from run to run); CPU tensors
-    run :func:`deposit_multi_3d_reference`.
-    """
-    orders = _check_orders(orders)
+
+def gather_multi_3d_reference(
+    grids: torch.Tensor, normalized: torch.Tensor, orders: Orders
+) -> tuple[torch.Tensor, ...]:
+    """Plain version of :func:`gather_multi_3d` with a flat ``gather``."""
+    orders = check_orders(orders)
+    flat = grids.reshape(*grids.shape[:2], -1)
+    return gather_cells(flat, normalized, tuple(grids.shape[2:]), orders)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers and dispatch
+# ---------------------------------------------------------------------------
+
+
+def fits_untiled(histogram_shape) -> bool:
+    """The JAX package's whole-grid bound for its untiled kernels
+    (``pallas_cic.py:471``): ``nx * ny <= 4096`` and ``nx * ny * nt <=
+    262144``, up to the 64^3 corner."""
+    return (
+        len(histogram_shape) == 3
+        and histogram_shape[0] * histogram_shape[1] <= 4096
+        and math.prod(histogram_shape) <= 262144
+    )
+
+
+def uses_tiled(histogram_shape) -> bool:
+    """Whether a grid goes to the x-tiled kernels (128^3, (160, 40, 16), ...)."""
+    from cheetah_tpu_torch.ops import cic_tiled
+
+    return not fits_untiled(histogram_shape) and cic_tiled.tiled_bounds_ok(histogram_shape)
+
+
+def check_deposit_args(normalized, rows, histogram_shape, orders):
+    """Validate a deposit's arguments; returns the orders and the grid shape
+    as tuples of ints."""
+    orders = check_orders(orders)
     histogram_shape = tuple(int(n) for n in histogram_shape)
-    batch, num_orders, num_components, num_particles = rows.shape
+    batch, num_orders, _, num_particles = rows.shape
     if normalized.shape != (batch, num_particles, 3) or num_orders != len(orders):
         raise ValueError(
             f"Shapes do not match: normalized {tuple(normalized.shape)}, rows "
@@ -295,9 +239,54 @@ def deposit_multi_3d(
         raise ValueError(f"A 3D grid shape is required: {histogram_shape}")
     if normalized.dtype != rows.dtype:
         raise TypeError(f"dtypes differ: {normalized.dtype} and {rows.dtype}")
-    if _check_device(normalized, rows) == "cpu":
+    _check_device(normalized, rows)
+    return orders, histogram_shape
+
+
+def check_gather_args(grids, normalized, orders):
+    """Validate a gather's arguments; returns the orders as a tuple."""
+    orders = check_orders(orders)
+    if grids.dim() != 5:
+        raise ValueError(f"grids must be (B, C, nx, ny, nt): {tuple(grids.shape)}")
+    batch, num_particles = grids.shape[0], normalized.shape[1]
+    if normalized.shape != (batch, num_particles, 3):
+        raise ValueError(
+            f"Shapes do not match: grids {tuple(grids.shape)}, normalized "
+            f"{tuple(normalized.shape)}."
+        )
+    if normalized.dtype != grids.dtype:
+        raise TypeError(f"dtypes differ: {grids.dtype} and {normalized.dtype}")
+    _check_device(grids, normalized)
+    return orders
+
+
+def deposit_multi_3d(
+    normalized: torch.Tensor,
+    rows: torch.Tensor,
+    histogram_shape: tuple[int, int, int],
+    orders: Orders,
+    tiled: bool | None = None,
+) -> torch.Tensor:
+    """Multi-order CIC deposit: bin-space positions ``normalized (B, N, 3)``
+    and per-order row blocks ``rows (B, O, C, N)`` -> the grid ``(B, C, nx,
+    ny, nt)``, summed over the orders.
+
+    Grids past :func:`fits_untiled` go to
+    :func:`~cheetah_tpu_torch.ops.cic_tiled.deposit_multi_tiled_3d`. Other
+    CUDA tensors launch ``deposit_multi_kernel`` (atomic adds, so the sum
+    order, and with it the last bits, change from run to run); CPU tensors
+    run :func:`deposit_multi_3d_reference`. ``tiled`` overrides the rule
+    (to hold the two pairs against each other on one grid).
+    """
+    orders, histogram_shape = check_deposit_args(normalized, rows, histogram_shape, orders)
+    if tiled if tiled is not None else uses_tiled(histogram_shape):
+        from cheetah_tpu_torch.ops import cic_tiled
+
+        return cic_tiled.deposit_multi_tiled_3d(normalized, rows, histogram_shape, orders)
+    if normalized.device.type == "cpu":
         return deposit_multi_3d_reference(normalized, rows, histogram_shape, orders)
 
+    batch, _, num_components, num_particles = rows.shape
     normalized = normalized.contiguous()
     rows = rows.contiguous()
     out = torch.zeros(
@@ -305,13 +294,10 @@ def deposit_multi_3d(
     )
     if batch * num_particles * num_components == 0:
         return out
-    _launch(
-        "cic_deposit_multi",
-        rows.dtype,
-        rows.device,
-        (normalized, rows, out),
-        (batch, num_particles, num_components, *histogram_shape),
-        orders,
+    LIBRARY.launch(
+        "cic_deposit_multi", rows.dtype, rows.device,
+        normalized.data_ptr(), rows.data_ptr(), out.data_ptr(),
+        batch, num_particles, num_components, *histogram_shape, *orders_argument(orders),
     )
     deposit_multi_3d.launches += 1
     return out
@@ -321,30 +307,27 @@ deposit_multi_3d.launches = 0
 
 
 def gather_multi_3d(
-    grids: torch.Tensor, normalized: torch.Tensor, orders: Orders
+    grids: torch.Tensor, normalized: torch.Tensor, orders: Orders, tiled: bool | None = None
 ) -> tuple[torch.Tensor, ...]:
     """Multi-order trilinear gather: ``grids (B, C, nx, ny, nt)`` and
     bin-space positions ``normalized (B, N, 3)`` -> one ``(B, C, N)`` tensor
     per order. The exact adjoint of :func:`deposit_multi_3d`.
 
+    Grids past :func:`fits_untiled` go to
+    :func:`~cheetah_tpu_torch.ops.cic_tiled.gather_multi_tiled_3d`. Other
     CUDA tensors launch ``gather_multi_kernel``; CPU tensors run
-    :func:`gather_multi_3d_reference`.
+    :func:`gather_multi_3d_reference`. ``tiled`` overrides the rule.
     """
-    orders = _check_orders(orders)
-    if grids.dim() != 5:
-        raise ValueError(f"grids must be (B, C, nx, ny, nt): {tuple(grids.shape)}")
-    batch, num_components, nx, ny, nt = grids.shape
-    num_particles = normalized.shape[1]
-    if normalized.shape != (batch, num_particles, 3):
-        raise ValueError(
-            f"Shapes do not match: grids {tuple(grids.shape)}, normalized "
-            f"{tuple(normalized.shape)}."
-        )
-    if normalized.dtype != grids.dtype:
-        raise TypeError(f"dtypes differ: {grids.dtype} and {normalized.dtype}")
-    if _check_device(grids, normalized) == "cpu":
+    orders = check_gather_args(grids, normalized, orders)
+    if tiled if tiled is not None else uses_tiled(tuple(grids.shape[2:])):
+        from cheetah_tpu_torch.ops import cic_tiled
+
+        return cic_tiled.gather_multi_tiled_3d(grids, normalized, orders)
+    if grids.device.type == "cpu":
         return gather_multi_3d_reference(grids, normalized, orders)
 
+    batch, num_components, nx, ny, nt = grids.shape
+    num_particles = normalized.shape[1]
     grids = grids.contiguous()
     normalized = normalized.contiguous()
     out = torch.empty(
@@ -354,16 +337,152 @@ def gather_multi_3d(
     )
     if batch * num_particles * num_components == 0:
         return tuple(out)
-    _launch(
-        "cic_gather_multi",
-        grids.dtype,
-        grids.device,
-        (grids, normalized, out),
-        (batch, num_particles, num_components, nx, ny, nt),
-        orders,
+    LIBRARY.launch(
+        "cic_gather_multi", grids.dtype, grids.device,
+        grids.data_ptr(), normalized.data_ptr(), out.data_ptr(),
+        batch, num_particles, num_components, nx, ny, nt, *orders_argument(orders),
     )
     gather_multi_3d.launches += 1
     return tuple(out)
 
 
 gather_multi_3d.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The autograd closure (counterpart of the primitives cic_gather_multi_p and
+# cic_deposit_multi_p, pallas_cic.py:536-750).
+# ---------------------------------------------------------------------------
+
+
+def _raised(order):
+    """(axis, raised order) pairs, dropping axes already at order 1, whose
+    raise is identically zero a.e. (``pallas_cic.py:545``)."""
+    return [
+        (axis, tuple(v + (a == axis) for a, v in enumerate(order)))
+        for axis in range(3)
+        if order[axis] == 0
+    ]
+
+
+def _unique(orders):
+    return tuple(dict.fromkeys(orders))
+
+
+def _position_grad(terms, like: torch.Tensor) -> torch.Tensor:
+    """Stack per-axis sums ``(B, N)`` into ``(B, N, 3)``, zeros where an
+    axis got no term."""
+    return torch.stack(
+        [terms[axis] if axis in terms else torch.zeros_like(like) for axis in range(3)],
+        dim=-1,
+    )
+
+
+def _accumulate(terms: dict, axis: int, value: torch.Tensor) -> None:
+    terms[axis] = value if axis not in terms else terms[axis] + value
+
+
+class GatherMulti(torch.autograd.Function):
+    """:func:`gather_multi_3d` with gradients with respect to ``grids`` and
+    ``normalized``.
+
+    Backward: the grids' gradient is the deposit of the output gradients at
+    the same orders (the transpose, ``pallas_cic.py:617-635``); the
+    positions' gradient along an axis is the gather at the orders raised on
+    that axis times the output gradients, summed over components and
+    orders (the jvp, ``:570-614``, transposed).
+    """
+
+    @staticmethod
+    def forward(ctx, grids, normalized, orders):
+        orders = check_orders(orders)
+        ctx.orders = orders
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(grids, normalized)
+        return gather_multi_3d(grids, normalized, orders)
+
+    @staticmethod
+    def backward(ctx, *grad_outs):
+        grids, normalized = ctx.saved_tensors
+        live = [(grad, order) for grad, order in zip(grad_outs, ctx.orders) if grad is not None]
+        grad_grids = grad_normalized = None
+        if not live:
+            return None, None, None
+        if ctx.needs_input_grad[0]:
+            rows = torch.stack([grad for grad, _ in live], dim=1)
+            grad_grids = DepositMulti.apply(
+                normalized, rows, tuple(grids.shape[2:]), tuple(order for _, order in live)
+            )
+        if ctx.needs_input_grad[1]:
+            need = _unique(r for _, order in live for _, r in _raised(order))
+            terms: dict[int, torch.Tensor] = {}
+            if need:
+                raised = dict(zip(need, GatherMulti.apply(grids, normalized, need)))
+                for grad, order in live:
+                    for axis, r in _raised(order):
+                        _accumulate(terms, axis, (raised[r] * grad).sum(dim=1))
+            grad_normalized = _position_grad(terms, normalized[..., 0])
+        return grad_grids, grad_normalized, None
+
+
+class DepositMulti(torch.autograd.Function):
+    """:func:`deposit_multi_3d` with gradients with respect to
+    ``normalized`` and ``rows``.
+
+    Backward: the rows' gradient is the gather of the grid's gradient at
+    the same orders (the transpose, ``pallas_cic.py:694-707``); the
+    positions' gradient along an axis is the gather at the orders raised on
+    that axis, weighted by the rows (the jvp, ``:654-691``, transposed).
+    Both come from one gather over the union of the orders.
+    """
+
+    @staticmethod
+    def forward(ctx, normalized, rows, histogram_shape, orders):
+        orders = check_orders(orders)
+        ctx.orders = orders
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(normalized, rows)
+        return deposit_multi_3d(normalized, rows, histogram_shape, orders)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if grad is None:
+            return None, None, None, None
+        normalized, rows = ctx.saved_tensors
+        orders = ctx.orders
+        want = list(orders) if ctx.needs_input_grad[1] else []
+        if ctx.needs_input_grad[0]:
+            want += [r for order in orders for _, r in _raised(order)]
+        want = _unique(want)
+        if not want:
+            return None, None, None, None
+        gathered = dict(zip(want, GatherMulti.apply(grad, normalized, want)))
+        grad_normalized = grad_rows = None
+        if ctx.needs_input_grad[0]:
+            terms: dict[int, torch.Tensor] = {}
+            for index, order in enumerate(orders):
+                for axis, r in _raised(order):
+                    _accumulate(terms, axis, (rows[:, index] * gathered[r]).sum(dim=1))
+            grad_normalized = _position_grad(terms, normalized[..., 0])
+        if ctx.needs_input_grad[1]:
+            grad_rows = torch.stack([gathered[order] for order in orders], dim=1)
+        return grad_normalized, grad_rows, None, None
+
+
+def differentiable_gather(
+    grids: torch.Tensor, normalized: torch.Tensor, orders: Orders = VALUE
+) -> tuple[torch.Tensor, ...]:
+    """:func:`gather_multi_3d` that autograd differentiates on the kernels
+    (counterpart of ``differentiable_pallas_gather``, ``pallas_cic.py:754``)."""
+    return GatherMulti.apply(grids, normalized, orders)
+
+
+def differentiable_deposit(
+    normalized: torch.Tensor,
+    rows: torch.Tensor,
+    histogram_shape: tuple[int, int, int],
+    orders: Orders = VALUE,
+) -> torch.Tensor:
+    """:func:`deposit_multi_3d` that autograd differentiates on the kernels
+    (counterpart of ``differentiable_pallas_deposit``, ``pallas_cic.py:775``)."""
+    return DepositMulti.apply(normalized, rows, histogram_shape, orders)

@@ -4,8 +4,9 @@ case of ``cheetah_tpu/ops/cloud_in_cell.py``).
 Positions are mapped to bin space with the cell-centre convention of the
 JAX package's ``_binspace_and_mask`` (``(pos - left) * nb / (right - left) -
 0.5``); particles outside the extent lose their charge and are parked at -2,
-where no corner lies on the grid. The deposit itself is
-:func:`cheetah_tpu_torch.ops.cic_kernels.deposit_multi_3d`.
+where no corner lies on the grid, and get no gradient. The deposit itself is
+:func:`cheetah_tpu_torch.ops.cic_kernels.differentiable_deposit`, whose
+backward runs on the kernels too.
 """
 
 from __future__ import annotations
@@ -89,7 +90,7 @@ def cloud_in_cell_charge_deposition(
     parked, masked_charges = binspace_and_mask(
         positions, charges.to(positions.dtype), histogram_shape, extent
     )
-    grid = cic_kernels.deposit_multi_3d(
+    grid = cic_kernels.differentiable_deposit(
         parked, masked_charges[:, None, None, :], histogram_shape, cic_kernels.VALUE
     )
     return grid[:, 0].reshape(*vector_shape, *histogram_shape)

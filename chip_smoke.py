@@ -5,11 +5,14 @@ Run from the root of the repository with no arguments::
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``cheetah_tpu_torch/csrc`` with nvcc, holds
-each kernel against its plain PyTorch version on the card, drives the two
-paths of the port (the ARES EA env step and the 1M-particle space-charge
-segment) through the public entry points, checks them against the port's
-own float64 run on the CPU, and times kernels and paths with CUDA events.
+It builds the CUDA kernels from ``cheetah_tpu_torch/csrc`` with nvcc (one
+process per source, all at once), holds each kernel against its plain
+PyTorch version on the card, drives the paths of the port through the
+public entry points (the ARES EA env step and the 1M-particle space-charge
+segment, forward and with their gradients, the latter on the 32^3 grid of
+the untiled kernels and the 128^3 grid of the x-tiled ones), checks them
+against the port's own float64 run on the CPU and a float64 finite
+difference on the card, and times kernels and paths with CUDA events.
 Every phase prints one JSON line. The last line is
 ``{"ok": true, "device": {...}}``; any failed check raises, so the script
 exits non-zero and prints no such line. It imports neither JAX nor the JAX
@@ -58,6 +61,24 @@ DEPOSIT_TOLERANCE = 1e-4
 # eps * gamma0 / (beta0 gamma0) = 6e-8 per particle (~1.5e-5 on the CPU).
 ENV_STEP_RTOL = 1e-4
 KICK_RMS_TOLERANCE = {"px": 1e-4, "py": 1e-4, "p": 1e-3}
+# Gradients. d sum(px^2) / d(drift length) sums a signed term per particle
+# with heavy cancellation, so float32 keeps fewer digits of it than of the
+# kicks, and fewer on a finer grid, with fewer particles per cell: on one
+# H100 this script measured the float32 gradient 2.6e-6 to 1.4e-5 (32^3)
+# and 2.3e-4 to 2.8e-4 (128^3) off the float64 CPU gradient. The card's
+# float64 gradient differs from the CPU's in summation order only (atomics,
+# FFT), amplified by the same cancellation (2e-13 measured). The float64
+# central difference on the card (step 1e-6 of the 0.1 m drift) differs
+# from the a.e. derivative where particles cross cell edges inside the
+# step, by O(step / cell) relative (2e-5 measured at 128^3).
+SC_GRAD_F32_RTOL = {(32, 32, 32): 1e-3, (128, 128, 128): 1e-2}
+SC_GRAD_F64_RTOL = 1e-8
+SC_GRAD_FD_STEP = 1e-6
+SC_GRAD_FD_RTOL = 1e-4
+# The env step's k1 gradient on the card (float32) against the CPU
+# (float64), relative to the largest gradient entry: a 13-matrix product
+# and a raw-moment variance in float32, as for sigma_x (1.8e-6 measured).
+ENV_GRAD_TOLERANCE = 1e-4
 
 
 def emit(phase: str, **fields) -> None:
@@ -162,10 +183,15 @@ def phase_environment() -> str:
     return smi
 
 
-def phase_build(cic_kernels) -> None:
+def phase_build(libraries) -> None:
+    from cheetah_tpu_torch.ops import nvcc
+
     start = time.perf_counter()
-    cic_kernels.build(verbose=True)
-    emit("build", seconds=time.perf_counter() - start, library=str(cic_kernels.library_path()))
+    nvcc.build_all(libraries, verbose=True)
+    emit(
+        "build", seconds=time.perf_counter() - start,
+        libraries=[str(library.path()) for library in libraries],
+    )
 
 
 def _uniform_positions(generator, batch, shape, dtype):
@@ -379,16 +405,17 @@ def phase_env_step(ctt, cic_kernels) -> None:
     )
 
 
-def _sc_segment(ctt, dtype, device):
+def _sc_segment(ctt, dtype, device, grid_shape=(32, 32, 32)):
     """The space-charge segment of the JAX package's benchmark
-    (``scripts/bench_all.py``): Drift-Kick-Drift-Kick-Drift on a 32^3 grid."""
+    (``scripts/bench_all.py:415-424``): Drift-Kick-Drift-Kick-Drift, on a
+    32^3 grid unless ``grid_shape`` says otherwise."""
     kw = {"dtype": dtype, "device": device}
     return ctt.Segment(
         [
             ctt.Drift(0.1, **kw),
-            ctt.SpaceChargeKick(0.2, **kw),
+            ctt.SpaceChargeKick(0.2, grid_shape=grid_shape, **kw),
             ctt.Drift(0.1, **kw),
-            ctt.SpaceChargeKick(0.2, **kw),
+            ctt.SpaceChargeKick(0.2, grid_shape=grid_shape, **kw),
             ctt.Drift(0.1, **kw),
         ]
     )
@@ -453,6 +480,371 @@ def phase_space_charge(ctt, cic_kernels) -> tuple[int, int]:
     return launches
 
 
+# The four kernel wrappers, each with its own launch count.
+def _wrappers(cic_kernels, cic_tiled) -> dict:
+    return {
+        "deposit_multi_3d": cic_kernels.deposit_multi_3d,
+        "gather_multi_3d": cic_kernels.gather_multi_3d,
+        "deposit_multi_tiled_3d": cic_tiled.deposit_multi_tiled_3d,
+        "gather_multi_tiled_3d": cic_tiled.gather_multi_tiled_3d,
+    }
+
+
+def _reset_launches(wrappers: dict) -> None:
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+
+
+def _launches(wrappers: dict) -> dict:
+    torch.cuda.synchronize()
+    return {name: wrapper.launches for name, wrapper in wrappers.items()}
+
+
+TILED_SHAPES = [(128, 128, 128), (128, 128, 64), (160, 40, 16)]
+
+
+def _tiled_check_positions(generator, batch, shape, dtype):
+    """Bin-space positions of a narrow Gaussian beam, so that the edge tiles
+    hold few or no particles and the centre tiles are crowded, with a share
+    spilling past every edge and parked (-2), NaN, +-inf and -1e30
+    particles."""
+    n = torch.tensor(shape, dtype=dtype, device="cuda")
+    size = (batch, NUM_PARTICLES, 3)
+    normalized = n / 2 + torch.randn(size, generator=generator, dtype=dtype, device="cuda") * n / 10
+    spill = torch.rand(size, generator=generator, dtype=dtype, device="cuda") * (n + 2.0) - 1.5
+    normalized[:, ::13] = spill[:, ::13]
+    normalized[:, ::97] = -2.0
+    normalized[:, 1::1009, 0] = float("nan")
+    normalized[:, 2::1009, 1] = float("inf")
+    normalized[:, 3::1009, 2] = -1e30
+    normalized[:, 4::1009, 0] = float("inf")
+    normalized[:, 5::1009, 0] = -float("inf")
+    return normalized
+
+
+def phase_kernels_tiled(cic_kernels, cic_tiled) -> dict:
+    """The x-tiled kernels against their plain versions and against the
+    untiled kernels on the card, at all 8 orders, B in {1, 4}, float32 and
+    float64, on grids past the untiled bound; then timed at the 128^3
+    path's shape. Returns the numbers for the ``kernels`` line."""
+    generator = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    worst = {"deposit": 0.0, "gather": 0.0, "deposit_vs_untiled": 0.0, "gather_vs_untiled": 0.0}
+    # Plus the grid with the largest window row: ny = 1, nt = 512, in f64.
+    for batch, shape, dtype in [
+        *itertools.product((1, 4), TILED_SHAPES, (torch.float32, torch.float64)),
+        (1, (1024, 1, 512), torch.float64),
+    ]:
+        check(cic_kernels.uses_tiled(shape), f"{shape} is not dispatched to the tiled kernels")
+        normalized = _tiled_check_positions(generator, batch, shape, dtype)
+        rows = torch.randn(
+            (batch, len(ALL_ORDERS), 1, NUM_PARTICLES), generator=generator,
+            dtype=dtype, device="cuda",
+        )
+        got = cic_tiled.deposit_multi_tiled_3d(normalized, rows, shape, ALL_ORDERS)
+        want = cic_tiled.deposit_multi_tiled_3d_reference(normalized, rows, shape, ALL_ORDERS)
+        untiled = cic_kernels.deposit_multi_3d(normalized, rows, shape, ALL_ORDERS, tiled=False)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), "tiled deposit produced non-finite values")
+        deposit_error = relative_error(got, want)[1]
+        deposit_untiled = relative_error(got, untiled)[1]
+        del got, want, untiled
+
+        grids = torch.randn((batch, 3, *shape), generator=generator, dtype=dtype, device="cuda")
+        got = cic_tiled.gather_multi_tiled_3d(grids, normalized, ALL_ORDERS)
+        want = cic_tiled.gather_multi_tiled_3d_reference(grids, normalized, ALL_ORDERS)
+        untiled = cic_kernels.gather_multi_3d(grids, normalized, ALL_ORDERS, tiled=False)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(g).all()) for g in got),
+              "tiled gather produced non-finite values")
+        gather_error = max(relative_error(g, w)[1] for g, w in zip(got, want))
+        gather_untiled = max(relative_error(g, u)[1] for g, u in zip(got, untiled))
+        emit(
+            "kernel_tiled_check",
+            batch=batch, grid=list(shape), particles=NUM_PARTICLES, orders=len(ALL_ORDERS),
+            dtype=str(dtype).removeprefix("torch."),
+            rows_per_tile=cic_tiled.rows_per_tile(shape),
+            deposit_rel_err=deposit_error, deposit_rel_diff_untiled=deposit_untiled,
+            gather_components=3, gather_rel_err=gather_error,
+            gather_rel_diff_untiled=gather_untiled,
+        )
+        check(deposit_error <= DEPOSIT_TOLERANCE, f"tiled deposit error {deposit_error}")
+        check(deposit_untiled <= DEPOSIT_TOLERANCE, f"tiled vs untiled deposit {deposit_untiled}")
+        check(gather_error <= GATHER_TOLERANCE, f"tiled gather error {gather_error}")
+        check(gather_untiled <= GATHER_TOLERANCE, f"tiled vs untiled gather {gather_untiled}")
+        for key, value in (("deposit", deposit_error), ("gather", gather_error),
+                           ("deposit_vs_untiled", deposit_untiled),
+                           ("gather_vs_untiled", gather_untiled)):
+            worst[key] = max(worst[key], value)
+        del normalized, rows, grids, got, want, untiled
+
+    # The 128^3 path's shape: one instance, 1M particles of a Gaussian beam
+    # on a grid of +-3 sigma, the value order; the deposit carries the
+    # charge (C=1), the gather the three force components (C=3).
+    shape = (128, 128, 128)
+    f32 = torch.float32
+    cells = shape[0] * shape[1] * shape[2]
+    value = cic_kernels.VALUE
+    positions = _beam_positions(generator, shape, -0.5, f32)
+    charges = torch.rand((1, 1, 1, NUM_PARTICLES), generator=generator, dtype=f32, device="cuda")
+    got = cic_tiled.deposit_multi_tiled_3d(positions, charges, shape, value)
+    want = cic_tiled.deposit_multi_tiled_3d_reference(positions, charges, shape, value)
+    deposit_abs, deposit_rel = relative_error(got, want)
+    check(deposit_rel <= DEPOSIT_TOLERANCE, f"tiled deposit error {deposit_rel} at the main shape")
+    deposit = {
+        "ms": time_ms(lambda: cic_tiled.deposit_multi_tiled_3d(positions, charges, shape, value),
+                      per_event=10),
+        "plain_ms": time_ms(
+            lambda: cic_tiled.deposit_multi_tiled_3d_reference(positions, charges, shape, value),
+            per_event=10,
+        ),
+        "untiled_ms": time_ms(
+            lambda: cic_kernels.deposit_multi_3d(positions, charges, shape, value, tiled=False),
+            per_event=10,
+        ),
+        "plan_ms": time_ms(lambda: cic_tiled.tile_plan(positions, shape), per_event=10),
+        "max_abs_err": deposit_abs, "rel_err": deposit_rel,
+    }
+    # Inputs read once (positions, charges), the grid written once.
+    deposit_bound = bound(NUM_PARTICLES * (3 + 1) * 4 + cells * 4, NUM_PARTICLES * 8 * 5)
+
+    nodes = _beam_positions(generator, shape, 0.0, f32)
+    grids = torch.randn((1, 3, *shape), generator=generator, dtype=f32, device="cuda")
+    (got,) = cic_tiled.gather_multi_tiled_3d(grids, nodes, value)
+    (want,) = cic_tiled.gather_multi_tiled_3d_reference(grids, nodes, value)
+    gather_abs, gather_rel = relative_error(got, want)
+    check(gather_rel <= GATHER_TOLERANCE, f"tiled gather error {gather_rel} at the main shape")
+    scale = torch.tensor([shape[2] - 1, shape[1] - 1, shape[0] - 1], dtype=f32, device="cuda")
+    sample_grid = (nodes.flip(-1) / scale * 2 - 1).view(1, 1, 1, NUM_PARTICLES, 3)
+
+    def library_gather():
+        return torch.nn.functional.grid_sample(
+            grids, sample_grid, mode="bilinear", padding_mode="zeros", align_corners=True
+        )
+
+    gather = {
+        "ms": time_ms(lambda: cic_tiled.gather_multi_tiled_3d(grids, nodes, value), per_event=10),
+        "plain_ms": time_ms(
+            lambda: cic_tiled.gather_multi_tiled_3d_reference(grids, nodes, value), per_event=10
+        ),
+        "untiled_ms": time_ms(
+            lambda: cic_kernels.gather_multi_3d(grids, nodes, value, tiled=False), per_event=10
+        ),
+        "library_ms": time_ms(library_gather, per_event=10),
+        "grid_sample_rel_diff": relative_error(library_gather().view(1, 3, NUM_PARTICLES), want)[1],
+        "plan_ms": time_ms(lambda: cic_tiled.tile_plan(nodes, shape), per_event=10),
+        "max_abs_err": gather_abs, "rel_err": gather_rel,
+    }
+    # Where the wrappers' time goes, the plans' sorts against the kernels:
+    # one profile over one call of each.
+    profile_path(
+        "tiled_wrappers_main_shape",
+        lambda: (cic_tiled.deposit_multi_tiled_3d(positions, charges, shape, value),
+                 cic_tiled.gather_multi_tiled_3d(grids, nodes, value)),
+        deposit["ms"] + gather["ms"],
+    )
+    # Grids and positions read once, the three outputs written once.
+    gather_bound = bound(
+        cells * 3 * 4 + NUM_PARTICLES * 3 * 4 + NUM_PARTICLES * 3 * 4, NUM_PARTICLES * 3 * 8 * 4
+    )
+    emit(
+        "kernel_tiled_main_shape",
+        grid=list(shape), particles=NUM_PARTICLES, rows_per_tile=cic_tiled.rows_per_tile(shape),
+        deposit={**deposit, "bound_ms": deposit_bound[0]},
+        gather={**gather, "bound_ms": gather_bound[0]},
+        worst_rel_err_all_orders=worst,
+    )
+    return {
+        "deposit": dict(
+            ms=deposit["ms"], plain_ms=deposit["plain_ms"], bound_ms=deposit_bound[0],
+            bound_by=deposit_bound[1], library_ms=None, max_abs_err=deposit_abs,
+        ),
+        "gather": dict(
+            ms=gather["ms"], plain_ms=gather["plain_ms"], bound_ms=gather_bound[0],
+            bound_by=gather_bound[1], library_ms=gather["library_ms"], max_abs_err=gather_abs,
+        ),
+    }
+
+
+def phase_autograd_kernels(cic_kernels, wrappers) -> None:
+    """gradcheck and gradgradcheck of the autograd closure in float64 on
+    the card, on an untiled and a tiled grid (the backward of a backward
+    stays on the kernels). Atomic sums may differ in the last bits between
+    two backward passes, so ``nondet_tol`` allows 1e-12."""
+    generator = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    orders = ((0, 0, 0), (1, 0, 0), (0, 1, 1))
+    results = []
+    for shape in ((8, 7, 6), (1025, 4, 2)):
+        n = torch.tensor(shape, dtype=torch.float64, device="cuda")
+        positions = torch.rand(
+            (1, 24, 3), generator=generator, dtype=torch.float64, device="cuda"
+        ) * (n - 0.6) - 0.8
+        # Off the integers, where the weights have kinks.
+        near = (positions - positions.round()).abs() < 0.05
+        normalized = (positions + 0.1 * near).requires_grad_()
+        grids = torch.randn(
+            (1, 2, *shape), generator=generator, dtype=torch.float64, device="cuda"
+        ).requires_grad_()
+        rows = torch.randn(
+            (1, len(orders), 2, 24), generator=generator, dtype=torch.float64, device="cuda"
+        ).requires_grad_()
+        options = {"fast_mode": True, "atol": 1e-7, "rtol": 1e-6, "nondet_tol": 1e-12}
+
+        def gather(g, p):
+            return cic_kernels.differentiable_gather(g, p, orders)
+
+        def deposit(p, r):
+            return cic_kernels.differentiable_deposit(p, r, shape, orders)
+
+        _reset_launches(wrappers)
+        check(torch.autograd.gradcheck(gather, (grids, normalized), **options), "gradcheck gather")
+        check(torch.autograd.gradgradcheck(gather, (grids, normalized), **options),
+              "gradgradcheck gather")
+        check(torch.autograd.gradcheck(deposit, (normalized, rows), **options), "gradcheck deposit")
+        check(torch.autograd.gradgradcheck(deposit, (normalized, rows), **options),
+              "gradgradcheck deposit")
+        launches = _launches(wrappers)
+        tiled = cic_kernels.uses_tiled(shape)
+        used = [name for name, count in launches.items() if count > 0]
+        check(
+            sorted(used) == sorted(name for name in wrappers if ("tiled" in name) == tiled),
+            f"{shape}: the checks launched {launches}",
+        )
+        results.append({"grid": list(shape), "tiled": tiled, "launches": launches})
+    emit("autograd_kernels", dtype="float64", orders=[list(o) for o in orders],
+         checks=["gradcheck", "gradgradcheck"], passed=True, grids=results)
+
+
+def _sc_value_and_grad(segment, beam, length_value):
+    """sum(px^2) after the segment and its derivative with respect to the
+    first drift's length (``space_charge_grad`` of ``scripts/bench_all.py``)."""
+    length = torch.tensor(
+        length_value, dtype=beam.particles.dtype, device=beam.particles.device,
+        requires_grad=True,
+    )
+    segment.elements[0].length = length
+    value = torch.sum(torch.square(segment.track(beam).px))
+    (grad,) = torch.autograd.grad(value, length)
+    return value.detach(), grad
+
+
+def phase_sc_grad(ctt, wrappers, grid_shape, uses_tiled: bool) -> dict:
+    """value_and_grad of the space-charge segment at 1M particles on the
+    card (float32): launches of the forward and of the backward, the
+    gradient against the port's float64 CPU run and against a float64
+    central difference on the card, the CUDA-event time and a profile."""
+    label = f"sc_grad_{grid_shape[0]}"
+    generator = torch.Generator(device="cuda").manual_seed(SEED)
+    beam = _bench_beam(ctt, NUM_PARTICLES, "cuda", generator)
+    segment = _sc_segment(ctt, torch.float32, "cuda", grid_shape)
+
+    length = torch.tensor(0.1, device="cuda", requires_grad=True)
+    segment.elements[0].length = length
+    _reset_launches(wrappers)
+    value = torch.sum(torch.square(segment.track(beam).px))
+    forward = _launches(wrappers)
+    _reset_launches(wrappers)
+    (grad,) = torch.autograd.grad(value, length)
+    backward = _launches(wrappers)
+    check(bool(torch.isfinite(grad)) and grad.item() != 0, f"{label}: gradient {grad.item()}")
+    # Per kick: forward, one deposit (charge) and one gather (forces);
+    # backward, the gather's transpose (one deposit of the force
+    # gradients), its raised-order gather for the positions, and the
+    # deposit's raised-order gather for the positions (the charges need no
+    # gradient). Only the pair that the grid is dispatched to may launch.
+    kind = "tiled_3d" if uses_tiled else "3d"
+    expected_forward = {name: 0 for name in wrappers}
+    expected_backward = dict(expected_forward)
+    expected_forward.update({f"deposit_multi_{kind}": 2, f"gather_multi_{kind}": 2})
+    expected_backward.update({f"deposit_multi_{kind}": 2, f"gather_multi_{kind}": 4})
+    check(forward == expected_forward and backward == expected_backward,
+          f"{label}: launches forward {forward}, backward {backward}")
+
+    start = time.perf_counter()
+    value_cpu, grad_cpu = _sc_value_and_grad(
+        _sc_segment(ctt, torch.float64, "cpu", grid_shape), beam.to("cpu", torch.float64), 0.1
+    )
+    cpu_seconds = time.perf_counter() - start
+    f32_error = abs(grad.item() - grad_cpu.item()) / abs(grad_cpu.item())
+
+    segment64 = _sc_segment(ctt, torch.float64, "cuda", grid_shape)
+    beam64 = beam.to(dtype=torch.float64)
+    _, grad64 = _sc_value_and_grad(segment64, beam64, 0.1)
+    f64_error = abs(grad64.item() - grad_cpu.item()) / abs(grad_cpu.item())
+
+    def loss64(length_value):
+        segment64.elements[0].length = torch.tensor(
+            length_value, dtype=torch.float64, device="cuda"
+        )
+        return torch.sum(torch.square(segment64.track(beam64).px)).item()
+
+    with torch.no_grad():
+        fd = (loss64(0.1 + SC_GRAD_FD_STEP) - loss64(0.1 - SC_GRAD_FD_STEP)) / (2 * SC_GRAD_FD_STEP)
+    fd_error = abs(fd - grad64.item()) / abs(grad64.item())
+
+    ms = time_ms(lambda: _sc_value_and_grad(segment, beam, 0.1), runs=10, warmup=2)
+    profile_path(label, lambda: _sc_value_and_grad(segment, beam, 0.1), ms)
+    emit(
+        label,
+        particles=NUM_PARTICLES, grid=list(grid_shape), dtype="float32", ms=ms,
+        value=value.item(), grad=grad.item(),
+        launches={"forward": forward, "backward": backward},
+        grad_cpu_f64=grad_cpu.item(), grad_rel_err_vs_cpu_f64=f32_error,
+        grad_card_f64=grad64.item(), card_f64_rel_err_vs_cpu_f64=f64_error,
+        finite_difference_f64=fd, fd_step=SC_GRAD_FD_STEP, fd_rel_diff=fd_error,
+        cpu_f64_seconds=cpu_seconds,
+    )
+    check(f32_error <= SC_GRAD_F32_RTOL[grid_shape], f"{label}: f32 gradient off by {f32_error}")
+    check(f64_error <= SC_GRAD_F64_RTOL, f"{label}: f64 gradient off by {f64_error}")
+    check(fd_error <= SC_GRAD_FD_RTOL, f"{label}: finite difference off by {fd_error}")
+    return {name: forward[name] + backward[name] for name in wrappers}
+
+
+def phase_env_step_grad(ctt, wrappers) -> None:
+    """d sum(sigma_x) / d k1 of the env step on the card (float32), one
+    instance at exactly k1 = 0, against the port's float64 CPU gradient."""
+    from cheetah_tpu_torch.lattices import ares_ea_subcell
+
+    num_instances, num_particles = 4096, 10_000
+    zero = num_instances // 2
+    segment = ares_ea_subcell(torch.float32)
+    k1 = torch.linspace(-20, 20, num_instances, device="cuda")
+    k1[zero] = 0.0
+    k1.requires_grad_()
+    segment.AREAMQZM1.k1 = k1
+    generator = torch.Generator(device="cuda").manual_seed(SEED)
+    beam = _bench_beam(ctt, num_particles, "cuda", generator)
+
+    def value_and_grad():
+        value = segment.track(beam).sigma_x.sum()
+        return value.detach(), torch.autograd.grad(value, k1)[0]
+
+    _reset_launches(wrappers)
+    _, grad = value_and_grad()
+    launches = _launches(wrappers)
+    check(tuple(grad.shape) == (num_instances,), f"k1 gradient shape {tuple(grad.shape)}")
+    check(bool(torch.isfinite(grad).all()), "non-finite k1 gradient")
+
+    picks = sorted({*torch.linspace(0, num_instances - 1, 8).round().long().tolist(), zero})
+    reference = ares_ea_subcell(torch.float64, device="cpu")
+    k1_cpu = k1.detach()[picks].cpu().double().requires_grad_()
+    reference.AREAMQZM1.k1 = k1_cpu
+    (expected,) = torch.autograd.grad(
+        reference.track(beam.to("cpu", torch.float64)).sigma_x.sum(), k1_cpu
+    )
+    actual = grad[picks].cpu().double()
+    error = ((actual - expected).abs().max() / expected.abs().max()).item()
+    ms = time_ms(value_and_grad, runs=10)
+    profile_path("env_step_grad", value_and_grad, ms)
+    emit(
+        "env_step_grad",
+        instances=num_instances, particles=num_particles, ms=ms,
+        grad_at_k1_zero=grad[zero].item(),
+        grad_at_k1_zero_cpu_f64=expected[picks.index(zero)].item(),
+        grad_err_vs_cpu_f64=error, kernel_launches=launches,
+    )
+    check(error <= ENV_GRAD_TOLERANCE, f"env step k1 gradient off by {error}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; none is available.", file=sys.stderr)
@@ -461,32 +853,47 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     import cheetah_tpu_torch as ctt
-    from cheetah_tpu_torch.ops import cic_kernels
+    from cheetah_tpu_torch.ops import cic_kernels, cic_tiled
 
+    wrappers = _wrappers(cic_kernels, cic_tiled)
     smi = phase_environment()
-    phase_build(cic_kernels)
+    phase_build([cic_kernels.LIBRARY, cic_tiled.LIBRARY])
     numbers = phase_kernels(cic_kernels)
+    tiled_numbers = phase_kernels_tiled(cic_kernels, cic_tiled)
+    phase_autograd_kernels(cic_kernels, wrappers)
     phase_env_step(ctt, cic_kernels)
-    deposit_launches, gather_launches = phase_space_charge(ctt, cic_kernels)
+    segment_launches = phase_space_charge(ctt, cic_kernels)
+    phase_env_step_grad(ctt, wrappers)
+    grad_launches = {
+        grid[0]: phase_sc_grad(ctt, wrappers, grid, cic_kernels.uses_tiled(grid))
+        for grid in ((32, 32, 32), (128, 128, 128))
+    }
 
-    source = "cheetah_tpu_torch/csrc/cic.cu"
+    def entry(name, source, replaces, launches_32, launches_128, measured, segment=0):
+        launches = launches_32 + launches_128
+        check(launches > 0, f"{name} was not launched on its path")
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches,
+            "launches_by_path": {"space_charge_segment": segment,
+                                 "sc_grad_32": launches_32, "sc_grad_128": launches_128},
+            **measured,
+        }
+
+    untiled, tiled = "cheetah_tpu_torch/csrc/cic.cu", "cheetah_tpu_torch/csrc/cic_tiled.cu"
     kernels = [
-        {
-            "name": "deposit_multi_3d",
-            "route": "cuda",
-            "source": source,
-            "replaces": "cheetah_tpu/ops/pallas_cic.py:316",
-            "launches": deposit_launches,
-            **numbers["deposit"],
-        },
-        {
-            "name": "gather_multi_3d",
-            "route": "cuda",
-            "source": source,
-            "replaces": "cheetah_tpu/ops/pallas_cic.py:238",
-            "launches": gather_launches,
-            **numbers["gather"],
-        },
+        entry("deposit_multi_3d", untiled, "cheetah_tpu/ops/pallas_cic.py:316",
+              grad_launches[32]["deposit_multi_3d"], grad_launches[128]["deposit_multi_3d"],
+              numbers["deposit"], segment_launches[0]),
+        entry("gather_multi_3d", untiled, "cheetah_tpu/ops/pallas_cic.py:238",
+              grad_launches[32]["gather_multi_3d"], grad_launches[128]["gather_multi_3d"],
+              numbers["gather"], segment_launches[1]),
+        entry("deposit_multi_tiled_3d", tiled, "cheetah_tpu/ops/pallas_cic_tiled.py:248",
+              grad_launches[32]["deposit_multi_tiled_3d"],
+              grad_launches[128]["deposit_multi_tiled_3d"], tiled_numbers["deposit"]),
+        entry("gather_multi_tiled_3d", tiled, "cheetah_tpu/ops/pallas_cic_tiled.py:393",
+              grad_launches[32]["gather_multi_tiled_3d"],
+              grad_launches[128]["gather_multi_tiled_3d"], tiled_numbers["gather"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -14,7 +14,7 @@ import torch
 
 import cheetah_tpu_torch as ctt
 from cheetah_tpu_torch.lattices import ares_ea_subcell
-from cheetah_tpu_torch.ops import cic_kernels
+from cheetah_tpu_torch.ops import cic_kernels, cic_tiled
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "cheetah_tpu_torch"
@@ -44,10 +44,10 @@ def test_import_loads_neither_jax_nor_triton():
     and no kernel is compiled or loaded at import."""
     code = (
         "import sys, torch, cheetah_tpu_torch as ctt;"
-        "from cheetah_tpu_torch.ops import cic_kernels;"
+        "from cheetah_tpu_torch.ops import cic_kernels, cic_tiled;"
         "ctt.lattices.ares_ea_subcell(device='cpu');"
         "assert not any(m.split('.')[0] in ('jax', 'cheetah_tpu', 'triton') for m in sys.modules);"
-        "assert cic_kernels._library is None"
+        "assert cic_kernels.LIBRARY.handle is None and cic_tiled.LIBRARY.handle is None"
     )
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, timeout=120)
 
@@ -88,7 +88,7 @@ def test_wrappers_use_plain_versions_for_cpu_tensors():
     )
     for got, want in zip(values, cic_kernels.gather_multi_3d_reference(grids, normalized, orders)):
         assert torch.equal(got, want)
-    assert cic_kernels._library is None
+    assert cic_kernels.LIBRARY.handle is None
 
 
 def test_wrappers_reject_bad_arguments():
@@ -113,6 +113,7 @@ def test_kernel_sources_are_packaged_and_built_outside_git():
         package_data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
     assert "csrc/*.cu" in package_data["cheetah_tpu_torch"]
     assert (PACKAGE / "csrc" / "cic.cu").is_file()
-    built = cic_kernels.library_path()
-    assert built.parent.name == "build" and built.parent.parent == PACKAGE
+    assert (PACKAGE / "csrc" / "cic_tiled.cu").is_file()
+    for built in (cic_kernels.LIBRARY.path(), cic_tiled.LIBRARY.path()):
+        assert built.parent.name == "build" and built.parent.parent == PACKAGE
     assert "build/" in (REPO / ".gitignore").read_text().split()
