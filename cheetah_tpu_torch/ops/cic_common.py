@@ -1,0 +1,183 @@
+"""What the untiled and the x-tiled CIC kernel pairs share: the orders and
+their C argument, the validation of a deposit's and a gather's arguments,
+and the per-corner sums from which both pairs' plain versions are built.
+
+:mod:`cheetah_tpu_torch.ops.cic_tiled` and
+:mod:`cheetah_tpu_torch.ops.cic_kernels` both import this module; it
+imports neither of them.
+
+``orders`` is a sequence of up to 8 per-axis derivative orders ``(ox, oy,
+ot)`` in ``{0, 1}``: 0 is the hat weight, 1 its a.e. derivative. Positions
+are in bin space: corner ``i0 = floor(p)`` weighs ``1 - f`` and ``i0 + 1``
+weighs ``f``; corners off the grid, and every corner of a non-finite
+position, weigh 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+Orders = Sequence[tuple[int, int, int]]
+
+#: The single value order, as the space-charge kick uses it.
+VALUE = ((0, 0, 0),)
+
+MAX_ORDERS = 8
+
+
+def check_orders(orders: Orders) -> tuple[tuple[int, int, int], ...]:
+    """The orders as a tuple of ``(ox, oy, ot)`` int triples; raises on more
+    than :data:`MAX_ORDERS` or on an order other than 0 or 1."""
+    orders = tuple(tuple(int(v) for v in order) for order in orders)
+    if not 1 <= len(orders) <= MAX_ORDERS:
+        raise ValueError(f"Between 1 and {MAX_ORDERS} orders are supported: {orders}")
+    if any(len(order) != 3 or any(v not in (0, 1) for v in order) for order in orders):
+        raise ValueError(f"Orders must be (ox, oy, ot) triples of 0 and 1: {orders}")
+    return orders
+
+
+def orders_argument(orders) -> tuple[ctypes.c_void_p, int]:
+    """The orders as the C entry points take them: a pointer to ``3 * O``
+    ints and ``O``. The pointer keeps its array alive."""
+    flat = (ctypes.c_int * (3 * len(orders)))(*(v for order in orders for v in order))
+    return ctypes.cast(flat, ctypes.c_void_p), len(orders)
+
+
+def _check_device(*tensors: torch.Tensor) -> str:
+    device = tensors[0].device
+    if any(tensor.device != device for tensor in tensors):
+        raise ValueError("All inputs must lie on the same device.")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"Unsupported device {device}.")
+    return device.type
+
+
+def check_deposit_args(normalized, rows, histogram_shape, orders):
+    """Validate a deposit's arguments; returns the orders and the grid shape
+    as tuples of ints."""
+    orders = check_orders(orders)
+    histogram_shape = tuple(int(n) for n in histogram_shape)
+    batch, num_orders, _, num_particles = rows.shape
+    if normalized.shape != (batch, num_particles, 3) or num_orders != len(orders):
+        raise ValueError(
+            f"Shapes do not match: normalized {tuple(normalized.shape)}, rows "
+            f"{tuple(rows.shape)}, {len(orders)} orders."
+        )
+    if len(histogram_shape) != 3 or min(histogram_shape) < 1:
+        raise ValueError(f"A 3D grid shape is required: {histogram_shape}")
+    if normalized.dtype != rows.dtype:
+        raise TypeError(f"dtypes differ: {normalized.dtype} and {rows.dtype}")
+    _check_device(normalized, rows)
+    return orders, histogram_shape
+
+
+def check_gather_args(grids, normalized, orders):
+    """Validate a gather's arguments; returns the orders as a tuple."""
+    orders = check_orders(orders)
+    if grids.dim() != 5:
+        raise ValueError(f"grids must be (B, C, nx, ny, nt): {tuple(grids.shape)}")
+    batch, num_particles = grids.shape[0], normalized.shape[1]
+    if normalized.shape != (batch, num_particles, 3):
+        raise ValueError(
+            f"Shapes do not match: grids {tuple(grids.shape)}, normalized "
+            f"{tuple(normalized.shape)}."
+        )
+    if normalized.dtype != grids.dtype:
+        raise TypeError(f"dtypes differ: {grids.dtype} and {normalized.dtype}")
+    _check_device(grids, normalized)
+    return orders
+
+
+# ---------------------------------------------------------------------------
+# Corner sums of the plain versions
+# ---------------------------------------------------------------------------
+
+
+def _axis_corners(position: torch.Tensor, num_bins: int):
+    """Per axis: for corners 0 and 1, the clamped integer index, the validity
+    mask and, for each order, the weight. Out-of-range and non-finite
+    positions give invalid corners; the range is tested in floating point
+    before any conversion to int."""
+    floor = torch.floor(position)
+    frac = position - floor
+    corners = []
+    for corner in (0, 1):
+        index = floor + corner
+        valid = (index >= 0) & (index <= num_bins - 1)
+        index = torch.where(valid, index, torch.zeros_like(index)).long()
+        weights = {
+            0: frac if corner else 1.0 - frac,
+            1: torch.full_like(frac, 1.0 if corner else -1.0),
+        }
+        corners.append((index, valid, weights))
+    return corners
+
+
+def _corner_terms(normalized: torch.Tensor, histogram_shape, orders):
+    """For each of the 8 corners: the flat cell index ``(B, N)``, the
+    validity mask ``(B, N)`` and one weight ``(B, N)`` per order."""
+    nx, ny, nt = histogram_shape
+    axes = [
+        _axis_corners(normalized[..., axis], n)
+        for axis, n in enumerate(histogram_shape)
+    ]
+    for cx in (0, 1):
+        ix, vx, wx = axes[0][cx]
+        for cy in (0, 1):
+            iy, vy, wy = axes[1][cy]
+            for ct in (0, 1):
+                it, vt, wt = axes[2][ct]
+                cell = (ix * ny + iy) * nt + it
+                valid = vx & vy & vt
+                weights = [wx[ox] * wy[oy] * wt[ot] for ox, oy, ot in orders]
+                yield cell, valid, weights
+
+
+def deposit_cells(normalized, rows, histogram_shape, orders, num_cells, cell_offset=None):
+    """``index_add_`` of every corner term into ``(B, C, num_cells)``: the
+    deposit into a grid of ``histogram_shape`` cells, shifted by
+    ``cell_offset (B, N)`` per particle when given (the tiled plain version
+    deposits each particle into its tile's window this way)."""
+    batch, num_orders, num_components, num_particles = rows.shape
+    out = torch.zeros(
+        batch * num_components * num_cells, dtype=rows.dtype, device=rows.device
+    )
+    base = (
+        torch.arange(batch * num_components, device=rows.device).view(
+            batch, num_components, 1
+        )
+        * num_cells
+    )
+    for cell, valid, weights in _corner_terms(normalized, histogram_shape, orders):
+        if cell_offset is not None:
+            cell = cell + cell_offset
+        value = sum(rows[:, o] * weights[o][:, None, :] for o in range(num_orders))
+        value = torch.where(valid[:, None, :], value, torch.zeros_like(value))
+        index = base + cell[:, None, :]
+        out.index_add_(0, index.reshape(-1), value.reshape(-1))
+    return out.view(batch, num_components, num_cells)
+
+
+def gather_cells(flat, normalized, histogram_shape, orders, cell_offset=None):
+    """Flat ``gather`` of every corner from ``flat (B, C, M)``: the gather
+    from a grid of ``histogram_shape`` cells, shifted by ``cell_offset (B,
+    N)`` per particle when given."""
+    batch, num_components = flat.shape[:2]
+    outs = [
+        torch.zeros(
+            batch, num_components, normalized.shape[1], dtype=flat.dtype, device=flat.device
+        )
+        for _ in orders
+    ]
+    for cell, valid, weights in _corner_terms(normalized, histogram_shape, orders):
+        if cell_offset is not None:
+            cell = cell + cell_offset
+        index = cell[:, None, :].expand(batch, num_components, -1)
+        value = torch.gather(flat, 2, index)
+        for out, weight in zip(outs, weights):
+            term = weight[:, None, :] * value
+            out += torch.where(valid[:, None, :], term, torch.zeros_like(term))
+    return tuple(outs)

@@ -1,8 +1,10 @@
-"""Multi-order cloud-in-cell deposit and gather: CUDA kernels and their plain
-PyTorch versions (counterpart of ``cheetah_tpu/ops/pallas_cic.py``).
+"""Multi-order cloud-in-cell deposit and gather: the untiled CUDA kernels,
+their plain PyTorch versions, the dispatch between the untiled and the
+x-tiled pair, and the autograd closure (counterpart of
+``cheetah_tpu/ops/pallas_cic.py``).
 
-The kernels are in ``cheetah_tpu_torch/csrc/cic.cu``; the note there says
-which TPU kernel each one replaces and what bounds it on the card. The
+The untiled kernels are in ``cheetah_tpu_torch/csrc/cic.cu``; the note there
+says which TPU kernel each one replaces and what bounds it on the card. The
 source is compiled with ``nvcc`` for ``sm_90a`` into a shared library with a
 plain C interface at first use, into ``cheetah_tpu_torch/build/``, and loaded
 with ``ctypes``.
@@ -15,21 +17,19 @@ like:
 - ``gather_multi_3d(grids (B, C, nx, ny, nt), normalized (B, N, 3), orders)
   -> O x (B, C, N)``.
 
-``orders`` is a sequence of up to 8 per-axis derivative orders ``(ox, oy,
-ot)`` in ``{0, 1}``: 0 is the hat weight, 1 its a.e. derivative. Positions
-are in bin space: corner ``i0 = floor(p)`` weighs ``1 - f`` and ``i0 + 1``
-weighs ``f``; corners off the grid, and every corner of a non-finite
-position, weigh 0.
+Orders and bin-space conventions are those of
+:mod:`cheetah_tpu_torch.ops.cic_common`.
 
 Dispatch, the rule of the JAX package (``pallas_cic.py:220-224``,
 ``:300-305``): a grid that fails :func:`fits_untiled` and passes
 :func:`~cheetah_tpu_torch.ops.cic_tiled.tiled_bounds_ok` goes to the x-tiled
 pair of :mod:`cheetah_tpu_torch.ops.cic_tiled`; every other grid goes to the
-untiled pair here, which takes any grid size. A wrapper given CPU tensors
-runs the plain version of the chosen pair; given CUDA tensors it launches
-the chosen kernel or raises. There is no fallback from the card to a plain
-version. Each wrapper counts the launches of its own kernel in a plain
-integer attribute ``launches``.
+untiled pair here, which takes any grid size. CPU tensors run the plain
+version of the chosen pair; CUDA tensors launch the chosen kernel or raise.
+There is no fallback from the card to a plain version. The launches of the
+untiled kernels are counted in ``deposit_multi_3d.launches`` and
+``gather_multi_3d.launches``, those of the tiled ones in the tiled wrappers'
+own ``launches``.
 
 Gradients: :class:`GatherMulti` and :class:`DepositMulti` are the autograd
 closure of the pair (``pallas_cic.py:536-750``). Each backward calls the two
@@ -41,18 +41,21 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Sequence
 
 import torch
 
+from cheetah_tpu_torch.ops import cic_tiled
+from cheetah_tpu_torch.ops.cic_common import (
+    VALUE,
+    Orders,
+    check_deposit_args,
+    check_gather_args,
+    check_orders,
+    deposit_cells,
+    gather_cells,
+    orders_argument,
+)
 from cheetah_tpu_torch.ops.nvcc import CudaLibrary
-
-Orders = Sequence[tuple[int, int, int]]
-
-#: The single value order, as the space-charge kick uses it.
-VALUE = ((0, 0, 0),)
-
-MAX_ORDERS = 8
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURE = [_P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I32, _P, _I32, _P]
@@ -61,123 +64,10 @@ LIBRARY = CudaLibrary(
 )
 
 
-def check_orders(orders: Orders) -> tuple[tuple[int, int, int], ...]:
-    """The orders as a tuple of ``(ox, oy, ot)`` int triples; raises on more
-    than :data:`MAX_ORDERS` or on an order other than 0 or 1."""
-    orders = tuple(tuple(int(v) for v in order) for order in orders)
-    if not 1 <= len(orders) <= MAX_ORDERS:
-        raise ValueError(f"Between 1 and {MAX_ORDERS} orders are supported: {orders}")
-    if any(len(order) != 3 or any(v not in (0, 1) for v in order) for order in orders):
-        raise ValueError(f"Orders must be (ox, oy, ot) triples of 0 and 1: {orders}")
-    return orders
-
-
-def orders_argument(orders) -> tuple[ctypes.c_void_p, int]:
-    """The orders as the C entry points take them: a pointer to ``3 * O``
-    ints and ``O``. The pointer keeps its array alive."""
-    flat = (ctypes.c_int * (3 * len(orders)))(*(v for order in orders for v in order))
-    return ctypes.cast(flat, ctypes.c_void_p), len(orders)
-
-
-def _check_device(*tensors: torch.Tensor) -> str:
-    device = tensors[0].device
-    if any(tensor.device != device for tensor in tensors):
-        raise ValueError("All inputs must lie on the same device.")
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"Unsupported device {device}.")
-    return device.type
-
-
 # ---------------------------------------------------------------------------
-# Plain PyTorch versions: the CPU path and the kernels' yardstick.
+# Plain PyTorch versions of the untiled pair: the CPU path and the kernels'
+# yardstick.
 # ---------------------------------------------------------------------------
-
-
-def _axis_corners(position: torch.Tensor, num_bins: int):
-    """Per axis: for corners 0 and 1, the clamped integer index, the validity
-    mask and, for each order, the weight. Out-of-range and non-finite
-    positions give invalid corners; the range is tested in floating point
-    before any conversion to int."""
-    floor = torch.floor(position)
-    frac = position - floor
-    corners = []
-    for corner in (0, 1):
-        index = floor + corner
-        valid = (index >= 0) & (index <= num_bins - 1)
-        index = torch.where(valid, index, torch.zeros_like(index)).long()
-        weights = {
-            0: frac if corner else 1.0 - frac,
-            1: torch.full_like(frac, 1.0 if corner else -1.0),
-        }
-        corners.append((index, valid, weights))
-    return corners
-
-
-def _corner_terms(normalized: torch.Tensor, histogram_shape, orders):
-    """For each of the 8 corners: the flat cell index ``(B, N)``, the
-    validity mask ``(B, N)`` and one weight ``(B, N)`` per order."""
-    nx, ny, nt = histogram_shape
-    axes = [
-        _axis_corners(normalized[..., axis], n)
-        for axis, n in enumerate(histogram_shape)
-    ]
-    for cx in (0, 1):
-        ix, vx, wx = axes[0][cx]
-        for cy in (0, 1):
-            iy, vy, wy = axes[1][cy]
-            for ct in (0, 1):
-                it, vt, wt = axes[2][ct]
-                cell = (ix * ny + iy) * nt + it
-                valid = vx & vy & vt
-                weights = [wx[ox] * wy[oy] * wt[ot] for ox, oy, ot in orders]
-                yield cell, valid, weights
-
-
-def deposit_cells(normalized, rows, histogram_shape, orders, num_cells, cell_offset=None):
-    """``index_add_`` of every corner term into ``(B, C, num_cells)``: the
-    deposit into a grid of ``histogram_shape`` cells, shifted by
-    ``cell_offset (B, N)`` per particle when given (the tiled plain version
-    deposits each particle into its tile's window this way)."""
-    batch, num_orders, num_components, num_particles = rows.shape
-    out = torch.zeros(
-        batch * num_components * num_cells, dtype=rows.dtype, device=rows.device
-    )
-    base = (
-        torch.arange(batch * num_components, device=rows.device).view(
-            batch, num_components, 1
-        )
-        * num_cells
-    )
-    for cell, valid, weights in _corner_terms(normalized, histogram_shape, orders):
-        if cell_offset is not None:
-            cell = cell + cell_offset
-        value = sum(rows[:, o] * weights[o][:, None, :] for o in range(num_orders))
-        value = torch.where(valid[:, None, :], value, torch.zeros_like(value))
-        index = base + cell[:, None, :]
-        out.index_add_(0, index.reshape(-1), value.reshape(-1))
-    return out.view(batch, num_components, num_cells)
-
-
-def gather_cells(flat, normalized, histogram_shape, orders, cell_offset=None):
-    """Flat ``gather`` of every corner from ``flat (B, C, M)``: the gather
-    from a grid of ``histogram_shape`` cells, shifted by ``cell_offset (B,
-    N)`` per particle when given."""
-    batch, num_components = flat.shape[:2]
-    outs = [
-        torch.zeros(
-            batch, num_components, normalized.shape[1], dtype=flat.dtype, device=flat.device
-        )
-        for _ in orders
-    ]
-    for cell, valid, weights in _corner_terms(normalized, histogram_shape, orders):
-        if cell_offset is not None:
-            cell = cell + cell_offset
-        index = cell[:, None, :].expand(batch, num_components, -1)
-        value = torch.gather(flat, 2, index)
-        for out, weight in zip(outs, weights):
-            term = weight[:, None, :] * value
-            out += torch.where(valid[:, None, :], term, torch.zeros_like(term))
-    return tuple(outs)
 
 
 def deposit_multi_3d_reference(
@@ -209,7 +99,9 @@ def gather_multi_3d_reference(
 def fits_untiled(histogram_shape) -> bool:
     """The JAX package's whole-grid bound for its untiled kernels
     (``pallas_cic.py:471``): ``nx * ny <= 4096`` and ``nx * ny * nt <=
-    262144``, up to the 64^3 corner."""
+    262144``, up to the 64^3 corner. It is the TPU's VMEM bound and means
+    nothing to the card's kernels, which take any grid; the port keeps it
+    so that both packages send the same grids to the same pair."""
     return (
         len(histogram_shape) == 3
         and histogram_shape[0] * histogram_shape[1] <= 4096
@@ -219,70 +111,14 @@ def fits_untiled(histogram_shape) -> bool:
 
 def uses_tiled(histogram_shape) -> bool:
     """Whether a grid goes to the x-tiled kernels (128^3, (160, 40, 16), ...)."""
-    from cheetah_tpu_torch.ops import cic_tiled
-
     return not fits_untiled(histogram_shape) and cic_tiled.tiled_bounds_ok(histogram_shape)
 
 
-def check_deposit_args(normalized, rows, histogram_shape, orders):
-    """Validate a deposit's arguments; returns the orders and the grid shape
-    as tuples of ints."""
-    orders = check_orders(orders)
-    histogram_shape = tuple(int(n) for n in histogram_shape)
-    batch, num_orders, _, num_particles = rows.shape
-    if normalized.shape != (batch, num_particles, 3) or num_orders != len(orders):
-        raise ValueError(
-            f"Shapes do not match: normalized {tuple(normalized.shape)}, rows "
-            f"{tuple(rows.shape)}, {len(orders)} orders."
-        )
-    if len(histogram_shape) != 3 or min(histogram_shape) < 1:
-        raise ValueError(f"A 3D grid shape is required: {histogram_shape}")
-    if normalized.dtype != rows.dtype:
-        raise TypeError(f"dtypes differ: {normalized.dtype} and {rows.dtype}")
-    _check_device(normalized, rows)
-    return orders, histogram_shape
-
-
-def check_gather_args(grids, normalized, orders):
-    """Validate a gather's arguments; returns the orders as a tuple."""
-    orders = check_orders(orders)
-    if grids.dim() != 5:
-        raise ValueError(f"grids must be (B, C, nx, ny, nt): {tuple(grids.shape)}")
-    batch, num_particles = grids.shape[0], normalized.shape[1]
-    if normalized.shape != (batch, num_particles, 3):
-        raise ValueError(
-            f"Shapes do not match: grids {tuple(grids.shape)}, normalized "
-            f"{tuple(normalized.shape)}."
-        )
-    if normalized.dtype != grids.dtype:
-        raise TypeError(f"dtypes differ: {grids.dtype} and {normalized.dtype}")
-    _check_device(grids, normalized)
-    return orders
-
-
-def deposit_multi_3d(
-    normalized: torch.Tensor,
-    rows: torch.Tensor,
-    histogram_shape: tuple[int, int, int],
-    orders: Orders,
-    tiled: bool | None = None,
-) -> torch.Tensor:
-    """Multi-order CIC deposit: bin-space positions ``normalized (B, N, 3)``
-    and per-order row blocks ``rows (B, O, C, N)`` -> the grid ``(B, C, nx,
-    ny, nt)``, summed over the orders.
-
-    Grids past :func:`fits_untiled` go to
-    :func:`~cheetah_tpu_torch.ops.cic_tiled.deposit_multi_tiled_3d`. Other
-    CUDA tensors launch ``deposit_multi_kernel`` (atomic adds, so the sum
-    order, and with it the last bits, change from run to run); CPU tensors
-    run :func:`deposit_multi_3d_reference`. ``tiled`` overrides the rule
-    (to hold the two pairs against each other on one grid).
-    """
-    orders, histogram_shape = check_deposit_args(normalized, rows, histogram_shape, orders)
-    if tiled if tiled is not None else uses_tiled(histogram_shape):
-        from cheetah_tpu_torch.ops import cic_tiled
-
-        return cic_tiled.deposit_multi_tiled_3d(normalized, rows, histogram_shape, orders)
+def _deposit_untiled(normalized, rows, histogram_shape, orders) -> torch.Tensor:
+    """The untiled deposit on arguments :func:`check_deposit_args` passed:
+    ``deposit_multi_kernel`` on CUDA tensors (atomic adds, so the sum order,
+    and with it the last bits, change from run to run),
+    :func:`deposit_multi_3d_reference` on CPU tensors."""
     if normalized.device.type == "cpu":
         return deposit_multi_3d_reference(normalized, rows, histogram_shape, orders)
 
@@ -303,26 +139,10 @@ def deposit_multi_3d(
     return out
 
 
-deposit_multi_3d.launches = 0
-
-
-def gather_multi_3d(
-    grids: torch.Tensor, normalized: torch.Tensor, orders: Orders, tiled: bool | None = None
-) -> tuple[torch.Tensor, ...]:
-    """Multi-order trilinear gather: ``grids (B, C, nx, ny, nt)`` and
-    bin-space positions ``normalized (B, N, 3)`` -> one ``(B, C, N)`` tensor
-    per order. The exact adjoint of :func:`deposit_multi_3d`.
-
-    Grids past :func:`fits_untiled` go to
-    :func:`~cheetah_tpu_torch.ops.cic_tiled.gather_multi_tiled_3d`. Other
-    CUDA tensors launch ``gather_multi_kernel``; CPU tensors run
-    :func:`gather_multi_3d_reference`. ``tiled`` overrides the rule.
-    """
-    orders = check_gather_args(grids, normalized, orders)
-    if tiled if tiled is not None else uses_tiled(tuple(grids.shape[2:])):
-        from cheetah_tpu_torch.ops import cic_tiled
-
-        return cic_tiled.gather_multi_tiled_3d(grids, normalized, orders)
+def _gather_untiled(grids, normalized, orders) -> tuple[torch.Tensor, ...]:
+    """The untiled gather on arguments :func:`check_gather_args` passed:
+    ``gather_multi_kernel`` on CUDA tensors, :func:`gather_multi_3d_reference`
+    on CPU tensors."""
     if grids.device.type == "cpu":
         return gather_multi_3d_reference(grids, normalized, orders)
 
@@ -344,6 +164,48 @@ def gather_multi_3d(
     )
     gather_multi_3d.launches += 1
     return tuple(out)
+
+
+def deposit_multi_3d(
+    normalized: torch.Tensor,
+    rows: torch.Tensor,
+    histogram_shape: tuple[int, int, int],
+    orders: Orders,
+) -> torch.Tensor:
+    """Multi-order CIC deposit: bin-space positions ``normalized (B, N, 3)``
+    and per-order row blocks ``rows (B, O, C, N)`` -> the grid ``(B, C, nx,
+    ny, nt)``, summed over the orders.
+
+    Grids past :func:`fits_untiled` go to
+    :func:`~cheetah_tpu_torch.ops.cic_tiled.deposit_multi_tiled_3d`, the
+    others to the untiled ``deposit_multi_kernel`` (its plain version on CPU
+    tensors).
+    """
+    orders, histogram_shape = check_deposit_args(normalized, rows, histogram_shape, orders)
+    if uses_tiled(histogram_shape):
+        return cic_tiled.deposit_multi_tiled_3d(normalized, rows, histogram_shape, orders)
+    return _deposit_untiled(normalized, rows, histogram_shape, orders)
+
+
+deposit_multi_3d.launches = 0
+
+
+def gather_multi_3d(
+    grids: torch.Tensor, normalized: torch.Tensor, orders: Orders
+) -> tuple[torch.Tensor, ...]:
+    """Multi-order trilinear gather: ``grids (B, C, nx, ny, nt)`` and
+    bin-space positions ``normalized (B, N, 3)`` -> one ``(B, C, N)`` tensor
+    per order. The exact adjoint of :func:`deposit_multi_3d`.
+
+    Grids past :func:`fits_untiled` go to
+    :func:`~cheetah_tpu_torch.ops.cic_tiled.gather_multi_tiled_3d`, the
+    others to the untiled ``gather_multi_kernel`` (its plain version on CPU
+    tensors).
+    """
+    orders = check_gather_args(grids, normalized, orders)
+    if uses_tiled(tuple(grids.shape[2:])):
+        return cic_tiled.gather_multi_tiled_3d(grids, normalized, orders)
+    return _gather_untiled(grids, normalized, orders)
 
 
 gather_multi_3d.launches = 0

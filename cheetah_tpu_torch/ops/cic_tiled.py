@@ -31,7 +31,7 @@ from typing import NamedTuple
 
 import torch
 
-from cheetah_tpu_torch.ops import cic_kernels
+from cheetah_tpu_torch.ops import cic_common
 from cheetah_tpu_torch.ops.nvcc import CudaLibrary
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
@@ -150,19 +150,19 @@ def deposit_multi_tiled_3d_reference(
     normalized: torch.Tensor,
     rows: torch.Tensor,
     histogram_shape: tuple[int, int, int],
-    orders: cic_kernels.Orders,
+    orders: cic_common.Orders,
 ) -> torch.Tensor:
     """Plain version of :func:`deposit_multi_tiled_3d`: deposit the sorted
     particles into their tiles' windows, then fold each halo row into the
     next tile's first row."""
-    orders = cic_kernels.check_orders(orders)
+    orders = cic_common.check_orders(orders)
     nx, ny, nt = histogram_shape
     plan = tile_plan(normalized, histogram_shape)
     span, tiles = plan.rows_per_tile, plan.num_tiles
     window = (span + 1, ny, nt)
     local, tile = _in_windows(normalized, plan)
     rows_sorted = rows.gather(3, plan.perm[:, None, None, :].expand_as(rows))
-    windows = cic_kernels.deposit_cells(
+    windows = cic_common.deposit_cells(
         local, rows_sorted, window, orders, tiles * (span + 1) * ny * nt,
         cell_offset=tile * ((span + 1) * ny * nt),
     ).view(rows.shape[0], rows.shape[2], tiles, *window)
@@ -173,12 +173,12 @@ def deposit_multi_tiled_3d_reference(
 
 
 def gather_multi_tiled_3d_reference(
-    grids: torch.Tensor, normalized: torch.Tensor, orders: cic_kernels.Orders
+    grids: torch.Tensor, normalized: torch.Tensor, orders: cic_common.Orders
 ) -> tuple[torch.Tensor, ...]:
     """Plain version of :func:`gather_multi_tiled_3d`: cut the grid into the
     tiles' windows (rows past nx read 0), gather the sorted particles from
     them, and write each output to the particle's original index."""
-    orders = cic_kernels.check_orders(orders)
+    orders = cic_common.check_orders(orders)
     batch, num_components, nx, ny, nt = grids.shape
     plan = tile_plan(normalized, (nx, ny, nt))
     span, tiles = plan.rows_per_tile, plan.num_tiles
@@ -189,7 +189,7 @@ def gather_multi_tiled_3d_reference(
     )
     windows = padded.index_select(2, window_rows.flatten()).reshape(batch, num_components, -1)
     local, tile = _in_windows(normalized, plan)
-    sorted_outs = cic_kernels.gather_cells(
+    sorted_outs = cic_common.gather_cells(
         windows, local, (span + 1, ny, nt), orders, cell_offset=tile * ((span + 1) * ny * nt)
     )
     index = plan.perm[:, None, :].expand_as(sorted_outs[0])
@@ -205,7 +205,7 @@ def deposit_multi_tiled_3d(
     normalized: torch.Tensor,
     rows: torch.Tensor,
     histogram_shape: tuple[int, int, int],
-    orders: cic_kernels.Orders,
+    orders: cic_common.Orders,
 ) -> torch.Tensor:
     """x-tiled multi-order CIC deposit, with the contract of
     :func:`cheetah_tpu_torch.ops.cic_kernels.deposit_multi_3d`.
@@ -214,7 +214,7 @@ def deposit_multi_tiled_3d(
     bits change from run to run); CPU tensors run
     :func:`deposit_multi_tiled_3d_reference`.
     """
-    orders, histogram_shape = cic_kernels.check_deposit_args(
+    orders, histogram_shape = cic_common.check_deposit_args(
         normalized, rows, histogram_shape, orders
     )
     if not tiled_bounds_ok(histogram_shape):
@@ -236,7 +236,7 @@ def deposit_multi_tiled_3d(
         normalized.data_ptr(), rows.data_ptr(), plan.perm.data_ptr(),
         plan.offsets.data_ptr(), out.data_ptr(), batch, num_particles, num_components,
         *histogram_shape, plan.rows_per_tile, plan.num_tiles, DEPOSIT_PER_RUN,
-        *cic_kernels.orders_argument(orders),
+        *cic_common.orders_argument(orders),
     )
     deposit_multi_tiled_3d.launches += 1
     return out
@@ -246,7 +246,7 @@ deposit_multi_tiled_3d.launches = 0
 
 
 def gather_multi_tiled_3d(
-    grids: torch.Tensor, normalized: torch.Tensor, orders: cic_kernels.Orders
+    grids: torch.Tensor, normalized: torch.Tensor, orders: cic_common.Orders
 ) -> tuple[torch.Tensor, ...]:
     """x-tiled multi-order trilinear gather, with the contract of
     :func:`cheetah_tpu_torch.ops.cic_kernels.gather_multi_3d`.
@@ -254,7 +254,7 @@ def gather_multi_tiled_3d(
     CUDA tensors launch ``gather_tiled_kernel``; CPU tensors run
     :func:`gather_multi_tiled_3d_reference`.
     """
-    orders = cic_kernels.check_gather_args(grids, normalized, orders)
+    orders = cic_common.check_gather_args(grids, normalized, orders)
     histogram_shape = tuple(grids.shape[2:])
     if not tiled_bounds_ok(histogram_shape):
         raise ValueError(f"The grid is past the tiled kernels' bounds: {histogram_shape}")
@@ -277,7 +277,7 @@ def gather_multi_tiled_3d(
         grids.data_ptr(), normalized.data_ptr(), plan.perm.data_ptr(),
         plan.offsets.data_ptr(), out.data_ptr(), batch, num_particles, num_components,
         *histogram_shape, plan.num_tiles, GATHER_PER_RUN,
-        *cic_kernels.orders_argument(orders),
+        *cic_common.orders_argument(orders),
     )
     gather_multi_tiled_3d.launches += 1
     return tuple(out)

@@ -158,6 +158,26 @@ def profile_path(label: str, fn, ms: float) -> None:
     )
 
 
+# The four kernel wrappers, each with its own launch count.
+def _wrappers(cic_kernels, cic_tiled) -> dict:
+    return {
+        "deposit_multi_3d": cic_kernels.deposit_multi_3d,
+        "gather_multi_3d": cic_kernels.gather_multi_3d,
+        "deposit_multi_tiled_3d": cic_tiled.deposit_multi_tiled_3d,
+        "gather_multi_tiled_3d": cic_tiled.gather_multi_tiled_3d,
+    }
+
+
+def _reset_launches(wrappers: dict) -> None:
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+
+
+def _launches(wrappers: dict) -> dict:
+    torch.cuda.synchronize()
+    return {name: wrapper.launches for name, wrapper in wrappers.items()}
+
+
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
@@ -367,7 +387,7 @@ def _bench_beam(ctt, num_particles, device, generator):
     )
 
 
-def phase_env_step(ctt, cic_kernels) -> None:
+def phase_env_step(ctt, wrappers) -> None:
     from cheetah_tpu_torch.lattices import ares_ea_subcell
 
     num_instances, num_particles = 4096, 10_000
@@ -377,11 +397,10 @@ def phase_env_step(ctt, cic_kernels) -> None:
     beam = _bench_beam(ctt, num_particles, "cuda", generator)
     num_elements = len(segment.elements)
 
-    cic_kernels.deposit_multi_3d.launches = 0
-    cic_kernels.gather_multi_3d.launches = 0
+    _reset_launches(wrappers)
     sigma_x = segment.track(beam).sigma_x
-    torch.cuda.synchronize()
-    launches = (cic_kernels.deposit_multi_3d.launches, cic_kernels.gather_multi_3d.launches)
+    launches = _launches(wrappers)
+    check(not any(launches.values()), f"the env step launched {launches}")
     check(tuple(sigma_x.shape) == (num_instances,), f"sigma_x shape {tuple(sigma_x.shape)}")
     check(bool(torch.isfinite(sigma_x).all()), "non-finite sigma_x")
 
@@ -400,7 +419,7 @@ def phase_env_step(ctt, cic_kernels) -> None:
         "env_step",
         instances=num_instances, particles=num_particles, elements=num_elements,
         ms=ms, transports_per_s=num_instances * num_particles * num_elements / (ms * 1e-3),
-        sigma_x_rel_err_vs_cpu_f64=error, kernel_launches=list(launches),
+        sigma_x_rel_err_vs_cpu_f64=error, kernel_launches=launches,
         peak_memory_gib=peak,
     )
 
@@ -434,17 +453,19 @@ def _check_kicks(label, beam_in, out_card, out_cpu) -> dict:
     return errors
 
 
-def phase_space_charge(ctt, cic_kernels) -> tuple[int, int]:
+def phase_space_charge(ctt, wrappers) -> dict:
+    """The 32^3 segment's forward on the card: only the untiled pair
+    launches, once per kick each, and the kicks match the port's float64
+    CPU run; then one 64^3 kick. Returns the segment's launches."""
     generator = torch.Generator(device="cuda").manual_seed(SEED)
     beam = _bench_beam(ctt, NUM_PARTICLES, "cuda", generator)
     segment = _sc_segment(ctt, torch.float32, "cuda")
 
-    cic_kernels.deposit_multi_3d.launches = 0
-    cic_kernels.gather_multi_3d.launches = 0
+    _reset_launches(wrappers)
     out = segment.track(beam)
-    torch.cuda.synchronize()
-    launches = (cic_kernels.deposit_multi_3d.launches, cic_kernels.gather_multi_3d.launches)
-    check(launches == (2, 2), f"space-charge segment launched {launches}, not (2, 2)")
+    launches = _launches(wrappers)
+    expected = {name: 0 for name in wrappers} | {"deposit_multi_3d": 2, "gather_multi_3d": 2}
+    check(launches == expected, f"space-charge segment launched {launches}, not {expected}")
     check(bool(torch.isfinite(out.particles).all()), "non-finite particles after the kicks")
 
     start = time.perf_counter()
@@ -456,18 +477,17 @@ def phase_space_charge(ctt, cic_kernels) -> tuple[int, int]:
     emit(
         "space_charge_segment",
         particles=NUM_PARTICLES, grid=[32, 32, 32], kicks=2, ms=ms,
-        launches={"deposit": launches[0], "gather": launches[1]},
+        launches=launches,
         kick_rms_rel_err_vs_cpu_f64=errors, cpu_f64_seconds=cpu_seconds,
     )
 
     kick = ctt.SpaceChargeKick(0.5, grid_shape=(64, 64, 64), dtype=torch.float32)
-    before = (cic_kernels.deposit_multi_3d.launches, cic_kernels.gather_multi_3d.launches)
+    _reset_launches(wrappers)
     out = kick.track(beam)
-    torch.cuda.synchronize()
-    after = (cic_kernels.deposit_multi_3d.launches, cic_kernels.gather_multi_3d.launches)
+    kick_launches = _launches(wrappers)
     check(
-        (after[0] - before[0], after[1] - before[1]) == (1, 1),
-        "the 64^3 kick did not launch each kernel once",
+        kick_launches == expected | {"deposit_multi_3d": 1, "gather_multi_3d": 1},
+        f"the 64^3 kick launched {kick_launches}, not each untiled kernel once",
     )
     check(bool(torch.isfinite(out.particles).all()), "non-finite particles after the 64^3 kick")
     kick_cpu = ctt.SpaceChargeKick(0.5, grid_shape=(64, 64, 64), dtype=torch.float64, device="cpu")
@@ -478,26 +498,6 @@ def phase_space_charge(ctt, cic_kernels) -> tuple[int, int]:
         kick_rms_rel_err_vs_cpu_f64=errors,
     )
     return launches
-
-
-# The four kernel wrappers, each with its own launch count.
-def _wrappers(cic_kernels, cic_tiled) -> dict:
-    return {
-        "deposit_multi_3d": cic_kernels.deposit_multi_3d,
-        "gather_multi_3d": cic_kernels.gather_multi_3d,
-        "deposit_multi_tiled_3d": cic_tiled.deposit_multi_tiled_3d,
-        "gather_multi_tiled_3d": cic_tiled.gather_multi_tiled_3d,
-    }
-
-
-def _reset_launches(wrappers: dict) -> None:
-    for wrapper in wrappers.values():
-        wrapper.launches = 0
-
-
-def _launches(wrappers: dict) -> dict:
-    torch.cuda.synchronize()
-    return {name: wrapper.launches for name, wrapper in wrappers.items()}
 
 
 TILED_SHAPES = [(128, 128, 128), (128, 128, 64), (160, 40, 16)]
@@ -542,7 +542,7 @@ def phase_kernels_tiled(cic_kernels, cic_tiled) -> dict:
         )
         got = cic_tiled.deposit_multi_tiled_3d(normalized, rows, shape, ALL_ORDERS)
         want = cic_tiled.deposit_multi_tiled_3d_reference(normalized, rows, shape, ALL_ORDERS)
-        untiled = cic_kernels.deposit_multi_3d(normalized, rows, shape, ALL_ORDERS, tiled=False)
+        untiled = cic_kernels._deposit_untiled(normalized, rows, shape, ALL_ORDERS)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), "tiled deposit produced non-finite values")
         deposit_error = relative_error(got, want)[1]
@@ -552,7 +552,7 @@ def phase_kernels_tiled(cic_kernels, cic_tiled) -> dict:
         grids = torch.randn((batch, 3, *shape), generator=generator, dtype=dtype, device="cuda")
         got = cic_tiled.gather_multi_tiled_3d(grids, normalized, ALL_ORDERS)
         want = cic_tiled.gather_multi_tiled_3d_reference(grids, normalized, ALL_ORDERS)
-        untiled = cic_kernels.gather_multi_3d(grids, normalized, ALL_ORDERS, tiled=False)
+        untiled = cic_kernels._gather_untiled(grids, normalized, ALL_ORDERS)
         torch.cuda.synchronize()
         check(all(bool(torch.isfinite(g).all()) for g in got),
               "tiled gather produced non-finite values")
@@ -598,7 +598,7 @@ def phase_kernels_tiled(cic_kernels, cic_tiled) -> dict:
             per_event=10,
         ),
         "untiled_ms": time_ms(
-            lambda: cic_kernels.deposit_multi_3d(positions, charges, shape, value, tiled=False),
+            lambda: cic_kernels._deposit_untiled(positions, charges, shape, value),
             per_event=10,
         ),
         "plan_ms": time_ms(lambda: cic_tiled.tile_plan(positions, shape), per_event=10),
@@ -627,7 +627,7 @@ def phase_kernels_tiled(cic_kernels, cic_tiled) -> dict:
             lambda: cic_tiled.gather_multi_tiled_3d_reference(grids, nodes, value), per_event=10
         ),
         "untiled_ms": time_ms(
-            lambda: cic_kernels.gather_multi_3d(grids, nodes, value, tiled=False), per_event=10
+            lambda: cic_kernels._gather_untiled(grids, nodes, value), per_event=10
         ),
         "library_ms": time_ms(library_gather, per_event=10),
         "grid_sample_rel_diff": relative_error(library_gather().view(1, 3, NUM_PARTICLES), want)[1],
@@ -861,39 +861,34 @@ def main() -> int:
     numbers = phase_kernels(cic_kernels)
     tiled_numbers = phase_kernels_tiled(cic_kernels, cic_tiled)
     phase_autograd_kernels(cic_kernels, wrappers)
-    phase_env_step(ctt, cic_kernels)
-    segment_launches = phase_space_charge(ctt, cic_kernels)
+    phase_env_step(ctt, wrappers)
+    segment_launches = phase_space_charge(ctt, wrappers)
     phase_env_step_grad(ctt, wrappers)
     grad_launches = {
         grid[0]: phase_sc_grad(ctt, wrappers, grid, cic_kernels.uses_tiled(grid))
         for grid in ((32, 32, 32), (128, 128, 128))
     }
 
-    def entry(name, source, replaces, launches_32, launches_128, measured, segment=0):
-        launches = launches_32 + launches_128
+    def entry(name, source, replaces, measured):
+        by_path = {"space_charge_segment": segment_launches[name],
+                   "sc_grad_32": grad_launches[32][name], "sc_grad_128": grad_launches[128][name]}
+        launches = by_path["sc_grad_32"] + by_path["sc_grad_128"]
         check(launches > 0, f"{name} was not launched on its path")
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches,
-            "launches_by_path": {"space_charge_segment": segment,
-                                 "sc_grad_32": launches_32, "sc_grad_128": launches_128},
-            **measured,
+            "launches": launches, "launches_by_path": by_path, **measured,
         }
 
     untiled, tiled = "cheetah_tpu_torch/csrc/cic.cu", "cheetah_tpu_torch/csrc/cic_tiled.cu"
     kernels = [
         entry("deposit_multi_3d", untiled, "cheetah_tpu/ops/pallas_cic.py:316",
-              grad_launches[32]["deposit_multi_3d"], grad_launches[128]["deposit_multi_3d"],
-              numbers["deposit"], segment_launches[0]),
+              numbers["deposit"]),
         entry("gather_multi_3d", untiled, "cheetah_tpu/ops/pallas_cic.py:238",
-              grad_launches[32]["gather_multi_3d"], grad_launches[128]["gather_multi_3d"],
-              numbers["gather"], segment_launches[1]),
+              numbers["gather"]),
         entry("deposit_multi_tiled_3d", tiled, "cheetah_tpu/ops/pallas_cic_tiled.py:248",
-              grad_launches[32]["deposit_multi_tiled_3d"],
-              grad_launches[128]["deposit_multi_tiled_3d"], tiled_numbers["deposit"]),
+              tiled_numbers["deposit"]),
         entry("gather_multi_tiled_3d", tiled, "cheetah_tpu/ops/pallas_cic_tiled.py:393",
-              grad_launches[32]["gather_multi_tiled_3d"],
-              grad_launches[128]["gather_multi_tiled_3d"], tiled_numbers["gather"]),
+              tiled_numbers["gather"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

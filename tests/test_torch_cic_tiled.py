@@ -139,9 +139,9 @@ def test_tiled_reference_equals_untiled_reference_f64(shape):
     normalized = torch.from_numpy(_positions(rng, 2, 1500, shape, np.float64))
     rows = torch.from_numpy(rng.normal(size=(2, len(ALL_ORDERS), 3, 1500)))
     grids = torch.from_numpy(rng.normal(size=(2, 3, *shape)))
-    # The wrappers' override picks either pair on any grid.
-    tiled = cic_kernels.deposit_multi_3d(normalized, rows, shape, ALL_ORDERS, tiled=True)
-    untiled = cic_kernels.deposit_multi_3d(normalized, rows, shape, ALL_ORDERS, tiled=False)
+    # Either pair's wrapper, called directly, takes any grid.
+    tiled = cic_tiled.deposit_multi_tiled_3d(normalized, rows, shape, ALL_ORDERS)
+    untiled = cic_kernels._deposit_untiled(normalized, rows, shape, ALL_ORDERS)
     assert torch.equal(
         tiled, cic_tiled.deposit_multi_tiled_3d_reference(normalized, rows, shape, ALL_ORDERS)
     )
@@ -150,8 +150,8 @@ def test_tiled_reference_equals_untiled_reference_f64(shape):
     )
     scale = untiled.abs().max().item()
     torch.testing.assert_close(tiled, untiled, rtol=0, atol=64 * F64_EPS * scale)
-    tiled = cic_kernels.gather_multi_3d(grids, normalized, ALL_ORDERS, tiled=True)
-    untiled = cic_kernels.gather_multi_3d(grids, normalized, ALL_ORDERS, tiled=False)
+    tiled = cic_tiled.gather_multi_tiled_3d(grids, normalized, ALL_ORDERS)
+    untiled = cic_kernels._gather_untiled(grids, normalized, ALL_ORDERS)
     plain = cic_tiled.gather_multi_tiled_3d_reference(grids, normalized, ALL_ORDERS)
     for got, want in zip(tiled, plain):
         assert torch.equal(got, want)
