@@ -26,29 +26,57 @@
 // corners x C components (summed over the O orders in registers) with
 // atomicAdd into a grid that the wrapper zeroes; the order of the atomic sums
 // changes from run to run, so results agree with a fixed-order sum only to
-// f32 (or f64) rounding. The gather reads 8 corners per component straight
-// from the grid, which stays resident in the 50 MB L2 (a 32^3 f32 component
-// is 128 KB, 64^3 is 1 MB).
+// f32 (or f64) rounding. The gather reads 8 corners per component: where a
+// component of the grid fits shared memory (32^3 in f32 is 128 KB of the
+// 227 KB; the value and raised order sets), gather_staged_kernel stages it
+// there with one bulk copy per component (Hopper's cp.async.bulk, completion
+// on an mbarrier) and each block reads its particles' corners from it;
+// elsewhere (64^3 is 1 MB, f64 32^3 is 256 KB, other order sets)
+// gather_multi_kernel reads them through L1 from the grid resident in the
+// 50 MB L2. On an H100 80GB HBM3 at 700 W the staged kernel took 0.024 ms
+// at the path's 32^3 shape (1M particles, C = 3) against 0.037 ms for the
+// L1/L2 kernel (chip_smoke.py's gather_order_sets; PERF.md).
+//
+// No tensor cores, on purpose: the gather does 8 * O * C multiply-adds per
+// particle (24M for 1M particles, one order, C = 3), and a two-hot product
+// like the TPU's would multiply thousands of zeros for every 8 non-zeros of
+// an (nx * ny)-wide row. The kernels work on loads and latency instead.
 //
 // Bound on the card: bytes, not operations. Per particle the deposit does
 // 8 * C * (O + 1) multiply-adds and the gather 8 * C * O, far below the
 // 67 TFLOP/s f32 rate for the bytes they move: positions (12 B), rows
 // (4 * O * C B) and the outputs (the grid once, or 4 * O * C B per
-// particle), at 3.35 TB/s. Random atomics and L2 reads, not DRAM, limit
-// these simple kernels; a later PR can privatise a 32^3 grid in shared
-// memory (128 KB f32) per block.
+// particle), at 3.35 TB/s. What limits them is not DRAM: random atomics on
+// a beam's crowded centre cells (deposit) and the latency of 8 * C
+// scattered L1/L2 reads per particle (gather). The gather is therefore
+// specialised (cic_common.cuh): the order set, the component count and
+// int32 indices at compile time, the weights made once per particle, and
+// all 8 * C loads in flight before the first multiply-add, which cuts its
+// registers and lets C components' loads overlap; and staged where the
+// grid fits shared memory, whose reads are cheaper than L1's misses.
 
 #include "cic_common.cuh"
 
 namespace {
 
+using cic::allow_staging;
 using cic::Axis;
+using cic::BulkStage;
 using cic::corner_sum;
+using cic::device_limits;
+using cic::DeviceLimits;
+using cic::dispatch_gather;
+using cic::fits_int32;
 using cic::gather_particle;
+using cic::gather_staged_particle;
+using cic::kCachedDevices;
 using cic::kMaxOrders;
 using cic::make_axis;
 using cic::make_orders;
+using cic::order_kind;
+using cic::OrderKind;
 using cic::OrderSet;
+using cic::stageable;
 using cic::valid_orders;
 
 constexpr int kThreads = 256;
@@ -92,19 +120,59 @@ deposit_multi_kernel(const T* __restrict__ pos, const T* __restrict__ rows,
   }
 }
 
-template <typename T>
+template <typename T, typename I, int Kind, int O, int C>
 __global__ void __launch_bounds__(kThreads)
 gather_multi_kernel(const T* __restrict__ grids, const T* __restrict__ pos,
-                    T* __restrict__ out, int64_t batch, int64_t num_particles,
-                    int num_components, int nx, int ny, int nt, OrderSet orders) {
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+                    T* __restrict__ out, I batch, I num_particles, int num_components, int nx,
+                    int ny, int nt, OrderSet orders) {
+  const I tid = static_cast<I>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (tid >= batch * num_particles) return;
-  const int64_t b = tid / num_particles;
-  const int64_t n = tid - b * num_particles;
+  const I b = tid / num_particles;
+  const I n = tid - b * num_particles;
+  const int comps = C > 0 ? C : num_components;
+  const I cells = static_cast<I>(nx) * ny * nt;
+  const T* p = pos + tid * 3;
+  gather_particle<T, I, Kind, O, C>(grids + b * comps * cells, p[0], p[1], p[2], out,
+                                    batch * comps * num_particles,
+                                    b * comps * num_particles + n, num_particles, comps, nx,
+                                    ny, nt, orders);
+}
+
+// The Hopper variant for grids whose component fits shared memory (32^3
+// in f32 is 128 KB of the 227 KB): one block of kStagedThreads per SM and
+// instance, each taking a share of the instance's particles; per
+// component, thread 0 stages the component's whole grid in shared memory
+// with one bulk copy (cp.async.bulk, completion on an mbarrier) and the
+// block gathers that component of its particles from shared memory.
+constexpr int kStagedThreads = 1024;
+
+template <typename T, int Kind, int O>
+__global__ void __launch_bounds__(kStagedThreads, 1)
+gather_staged_kernel(const T* __restrict__ grids, const T* __restrict__ pos,
+                     T* __restrict__ out, int64_t batch, int64_t num_particles,
+                     int num_components, int nx, int ny, int nt, OrderSet orders) {
+  extern __shared__ __align__(128) unsigned char staged_bytes[];
+  __shared__ uint64_t barrier;
+  T* grid = reinterpret_cast<T*>(staged_bytes);
+  BulkStage stage{&barrier, 0};
+  stage.init();
+  const int64_t b = blockIdx.y;
   const int64_t cells = static_cast<int64_t>(nx) * ny * nt;
-  gather_particle(grids + b * num_components * cells, pos + tid * 3, out,
-                  batch * num_components * num_particles, b * num_components * num_particles + n,
-                  num_particles, num_components, nx, ny, nt, orders);
+  const int64_t start = num_particles * blockIdx.x / gridDim.x;
+  const int64_t end = num_particles * (blockIdx.x + 1) / gridDim.x;
+  const int64_t order_stride = batch * num_components * num_particles;
+  const T* p = pos + b * num_particles * 3;
+  for (int c = 0; c < num_components; ++c) {
+    __syncthreads();  // the previous component's reads of `grid` are done
+    stage.copy(grid, grids + (b * num_components + c) * cells,
+               static_cast<uint32_t>(cells * sizeof(T)));
+    stage.wait();
+    const int64_t row = (b * num_components + c) * num_particles;
+    for (int64_t n = start + threadIdx.x; n < end; n += blockDim.x) {
+      gather_staged_particle<T, Kind, O>(grid, 0, p[n * 3], p[n * 3 + 1], p[n * 3 + 2], out,
+                                         order_stride, row + n, nx, ny, nt, orders);
+    }
+  }
 }
 
 unsigned int num_blocks(int64_t work) {
@@ -123,16 +191,67 @@ int deposit(const void* pos, const void* rows, void* out, int64_t batch,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int Kind, int O>
+cudaError_t gather_staged(const T* grids, const T* pos, T* out, int64_t batch,
+                          int64_t num_particles, int num_components, int nx, int ny, int nt,
+                          const OrderSet& set, const DeviceLimits& limits, int64_t bytes,
+                          cudaStream_t stream) {
+  static bool configured[kCachedDevices] = {};
+  auto kernel = gather_staged_kernel<T, Kind, O>;
+  const cudaError_t status = allow_staging(kernel, limits, configured);
+  if (status != cudaSuccess) return status;
+  const dim3 grid(static_cast<unsigned int>(limits.sms), static_cast<unsigned int>(batch));
+  kernel<<<grid, kStagedThreads, bytes, stream>>>(grids, pos, out, batch, num_particles,
+                                                  num_components, nx, ny, nt, set);
+  return cudaGetLastError();
+}
+
+// The value and raised order sets run on gather_staged_kernel where a
+// component of the grid fits shared memory and the instances fit the
+// grid's y dimension; every other call on gather_multi_kernel, whose 1-D
+// grid takes any batch.
 template <typename T>
 int gather(const void* grids, const void* pos, void* out, int64_t batch,
            int64_t num_particles, int num_components, int nx, int ny, int nt,
            const int* orders, int num_orders, void* stream) {
   if (!valid_orders(orders, num_orders)) return static_cast<int>(cudaErrorInvalidValue);
-  gather_multi_kernel<T><<<num_blocks(batch * num_particles), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(grids), static_cast<const T*>(pos), static_cast<T*>(out),
-      batch, num_particles, num_components, nx, ny, nt, make_orders(orders, num_orders));
-  return static_cast<int>(cudaGetLastError());
+  const OrderSet set = make_orders(orders, num_orders);
+  const int64_t cells = static_cast<int64_t>(nx) * ny * nt;
+  const OrderKind kind = order_kind(orders, num_orders);
+  if (kind != cic::kGenericOrders && batch <= 65535) {
+    DeviceLimits limits;
+    const cudaError_t status = device_limits(&limits);
+    if (status != cudaSuccess) return static_cast<int>(status);
+    const int64_t bytes = cells * static_cast<int64_t>(sizeof(T));
+    if (stageable(reinterpret_cast<uintptr_t>(grids), bytes, limits.staging)) {
+      const cudaStream_t s = static_cast<cudaStream_t>(stream);
+      const T* g = static_cast<const T*>(grids);
+      const T* p = static_cast<const T*>(pos);
+      T* o = static_cast<T*>(out);
+      return static_cast<int>(
+          kind == cic::kValueOrders
+              ? gather_staged<T, cic::kValueOrders, 1>(g, p, o, batch, num_particles,
+                                                       num_components, nx, ny, nt, set, limits,
+                                                       bytes, s)
+              : gather_staged<T, cic::kRaisedOrders, 3>(g, p, o, batch, num_particles,
+                                                        num_components, nx, ny, nt, set, limits,
+                                                        bytes, s));
+    }
+  }
+  const bool small = fits_int32(batch, num_particles, num_components, cells, num_orders);
+  return static_cast<int>(dispatch_gather(
+      orders, num_orders, num_components, small,
+      [&](auto kind, auto count, auto components, auto index) {
+        using I = decltype(index);
+        gather_multi_kernel<T, I, decltype(kind)::value, decltype(count)::value,
+                            decltype(components)::value>
+            <<<num_blocks(batch * num_particles), kThreads, 0,
+               static_cast<cudaStream_t>(stream)>>>(
+                static_cast<const T*>(grids), static_cast<const T*>(pos), static_cast<T*>(out),
+                static_cast<I>(batch), static_cast<I>(num_particles), num_components, nx, ny,
+                nt, set);
+        return cudaGetLastError();
+      }));
 }
 
 }  // namespace

@@ -6,11 +6,32 @@
 // floating point BEFORE the conversion to int, so NaN, +-inf and huge
 // positions (for which the conversion is undefined) give weight 0 at every
 // corner; the JAX package parks such particles at -2 for the same reason.
+//
+// The gather body (gather_particle) is specialised at compile time on the
+// order set, the component count and the index width, because a body that
+// takes them at run time unrolls all 8 order slots with a test and three
+// weight branches per slot and corner (over 100 registers a thread) and
+// cannot keep the loads of several components in flight together. The
+// paths ask for few order sets (space_charge_kick.py and the autograd
+// closure of ops/cic_kernels.py):
+//
+//   the forward kick:                 VALUE  ((0,0,0))                 C = 3
+//   GatherMulti.backward:             RAISED ((1,0,0),(0,1,0),(0,0,1)) C = 3
+//   DepositMulti.backward (charges):  RAISED                           C = 1
+//
+// These run specialised instantiations with int32 indices; every other
+// call (another order set or component count, or an index past int32) runs
+// a generic one templated on the order count only (with the orders as data,
+// a run-time component loop and int64 indices), which is right for all 8
+// orders but not tuned. The JAX kernels take their orders as a static
+// argument too.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cic {
 
@@ -23,15 +44,43 @@ struct OrderSet {
   int t[kMaxOrders];
 };
 
+// Which instantiation of the gather body serves an order set.
+enum OrderKind : int {
+  kGenericOrders = 0,  // any set, the orders read from the OrderSet
+  kValueOrders = 1,    // ((0, 0, 0))
+  kRaisedOrders = 2,   // ((1, 0, 0), (0, 1, 0), (0, 0, 1)): order o raises axis o
+};
+
+template <int V>
+using Int = std::integral_constant<int, V>;
+
+// The derivative order on `axis` of order slot `o`: a constant for the
+// specialised kinds once `o` is unrolled.
+template <int Kind>
+__device__ __forceinline__ int order_of(const OrderSet& orders, int o, int axis) {
+  if constexpr (Kind == kValueOrders) {
+    return 0;
+  } else if constexpr (Kind == kRaisedOrders) {
+    return o == axis ? 1 : 0;
+  } else {
+    return axis == 0 ? orders.x[o] : (axis == 1 ? orders.y[o] : orders.t[o]);
+  }
+}
+
 template <typename T>
 struct Axis {
   int i0;     // floor(p), valid only when v0 or v1
-  T f;        // p - floor(p)
+  T f;        // p - floor(p); 0 when neither corner is on the grid
   bool v0;    // corner i0 lies on the grid
   bool v1;    // corner i0 + 1 lies on the grid
 
   __device__ __forceinline__ bool any() const { return v0 || v1; }
   __device__ __forceinline__ bool valid(int c) const { return c ? v1 : v0; }
+  // Weight of corner `c` (0: i0, 1: i0 + 1) at derivative order `o`.
+  __device__ __forceinline__ T weight(int o, int c) const {
+    if (o == 0) return c ? f : T(1) - f;
+    return c ? T(1) : T(-1);
+  }
 };
 
 template <typename T>
@@ -42,15 +91,10 @@ __device__ __forceinline__ Axis<T> make_axis(T p, int n) {
   a.v0 = (fl >= T(0)) && (fl <= T(n - 1));
   a.v1 = (fl >= T(-1)) && (fl <= T(n - 2));
   a.i0 = (a.v0 || a.v1) ? static_cast<int>(fl) : 0;
-  a.f = p - fl;
+  // A finite weight for a particle off the grid on this axis (inf - inf is
+  // NaN), so that its zero loads stay zero in the gather's products.
+  a.f = (a.v0 || a.v1) ? p - fl : T(0);
   return a;
-}
-
-// Weight of corner `c` (0: i0, 1: i0 + 1) at derivative order `o`.
-template <typename T>
-__device__ __forceinline__ T weight(int o, int c, T f) {
-  if (o == 0) return c ? f : T(1) - f;
-  return c ? T(1) : T(-1);
 }
 
 // sum_o r[o] * w_o(corner): the deposit's value at one corner, summed over
@@ -63,50 +107,236 @@ __device__ __forceinline__ T corner_sum(const T (&r)[kMaxOrders], const OrderSet
 #pragma unroll
   for (int o = 0; o < kMaxOrders; ++o) {
     if (o < orders.count)
-      acc += r[o] * weight(orders.x[o], cx, ax.f) * weight(orders.y[o], cy, ay.f) *
-             weight(orders.t[o], ct, at.f);
+      acc += r[o] * ax.weight(orders.x[o], cx) * ay.weight(orders.y[o], cy) *
+             at.weight(orders.t[o], ct);
   }
   return acc;
 }
 
-// The gather of one particle: for each component c, out[o * plane + offset +
-// c * num_particles] = sum over the 8 corners of w_o * grid[c, corner].
-// `grid` points at the particle's instance, (C, nx, ny, nt).
-template <typename T>
-__device__ __forceinline__ void gather_particle(const T* __restrict__ grid, const T* p,
-                                                T* __restrict__ out, int64_t plane,
-                                                int64_t offset, int64_t num_particles,
-                                                int num_components, int nx, int ny, int nt,
-                                                const OrderSet& orders) {
-  const Axis<T> ax = make_axis(p[0], nx);
-  const Axis<T> ay = make_axis(p[1], ny);
-  const Axis<T> at = make_axis(p[2], nt);
-  const int64_t cells = static_cast<int64_t>(nx) * ny * nt;
-  for (int c = 0; c < num_components; ++c) {
-    const T* g = grid + c * cells;
-    T acc[kMaxOrders];
+// w[o][k]: the weight of corner k (cx = k >> 2, cy = (k >> 1) & 1, ct =
+// k & 1) at order o.
+template <typename T, int Kind, int O>
+__device__ __forceinline__ void corner_weights(const Axis<T>& ax, const Axis<T>& ay,
+                                               const Axis<T>& at, const OrderSet& orders,
+                                               T (&w)[O][8]) {
 #pragma unroll
-    for (int o = 0; o < kMaxOrders; ++o) acc[o] = T(0);
+  for (int o = 0; o < O; ++o) {
+    const int ox = order_of<Kind>(orders, o, 0);
+    const int oy = order_of<Kind>(orders, o, 1);
+    const int ot = order_of<Kind>(orders, o, 2);
 #pragma unroll
-    for (int corner = 0; corner < 8; ++corner) {
-      const int cx = corner >> 2, cy = (corner >> 1) & 1, ct = corner & 1;
-      if (!(ax.valid(cx) && ay.valid(cy) && at.valid(ct))) continue;
-      const int64_t cell =
-          (static_cast<int64_t>(ax.i0 + cx) * ny + (ay.i0 + cy)) * nt + (at.i0 + ct);
-      const T value = __ldg(g + cell);
-#pragma unroll
-      for (int o = 0; o < kMaxOrders; ++o) {
-        if (o < orders.count)
-          acc[o] += weight(orders.x[o], cx, ax.f) * weight(orders.y[o], cy, ay.f) *
-                    weight(orders.t[o], ct, at.f) * value;
-      }
-    }
-    const int64_t index = offset + c * num_particles;
-#pragma unroll
-    for (int o = 0; o < kMaxOrders; ++o) {
-      if (o < orders.count) out[o * plane + index] = acc[o];
+    for (int k = 0; k < 8; ++k) {
+      w[o][k] = ax.weight(ox, k >> 2) * ay.weight(oy, (k >> 1) & 1) * at.weight(ot, k & 1);
     }
   }
+}
+
+// The gather of one particle at (px, py, pt): for each order o and component
+// c, out[o * order_stride + out_index + c * component_stride] = sum over the
+// 8 corners of w_o(corner) * grid[c, corner]. `grid` points at the
+// particle's instance, (C, nx, ny, nt).
+//
+// The weights are made once per particle: per axis at most two orders at
+// two corners, shared by every component and order. All 8 * C loads are
+// issued (predicated on the corner lying on the grid, so nothing outside
+// the grid is read and an off-grid corner adds an exact zero) before the
+// first multiply-add. I is int32_t where every index of the call fits, else
+// int64_t. C = 0 takes the component count at run time.
+template <typename T, typename I, int Kind, int O, int C>
+__device__ __forceinline__ void gather_particle(const T* __restrict__ grid, T px, T py, T pt,
+                                                T* __restrict__ out, I order_stride,
+                                                I out_index, I component_stride,
+                                                int num_components, int nx, int ny, int nt,
+                                                const OrderSet& orders) {
+  const Axis<T> ax = make_axis(px, nx);
+  const Axis<T> ay = make_axis(py, ny);
+  const Axis<T> at = make_axis(pt, nt);
+  const I plane = static_cast<I>(ny) * nt;
+  const I cells = static_cast<I>(nx) * plane;
+  const I base = static_cast<I>(ax.i0) * plane + static_cast<I>(ay.i0) * nt + at.i0;
+
+  bool valid[8];
+  I offset[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int cx = k >> 2, cy = (k >> 1) & 1, ct = k & 1;
+    valid[k] = ax.valid(cx) && ay.valid(cy) && at.valid(ct);
+    offset[k] = base + cx * plane + cy * nt + ct;
+  }
+  T w[O][8];
+  corner_weights<T, Kind, O>(ax, ay, at, orders, w);
+
+  if constexpr (C > 0) {
+    T v[C][8];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[c][k] = valid[k] ? __ldg(grid + c * cells + offset[k]) : T(0);
+    }
+#pragma unroll
+    for (int o = 0; o < O; ++o) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        T acc = T(0);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) acc += w[o][k] * v[c][k];
+        out[o * order_stride + out_index + c * component_stride] = acc;
+      }
+    }
+  } else {
+    for (int c = 0; c < num_components; ++c) {
+      T v[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = valid[k] ? __ldg(grid + c * cells + offset[k]) : T(0);
+#pragma unroll
+      for (int o = 0; o < O; ++o) {
+        T acc = T(0);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) acc += w[o][k] * v[k];
+        out[o * order_stride + out_index + c * component_stride] = acc;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Gathers from a grid staged in shared memory (Hopper's bulk copy).
+// ---------------------------------------------------------------------------
+
+// One component's gather of one particle from `window`, the rows x0 ..
+// x0 + rows - 1 of the component staged in shared memory: out[o *
+// order_stride + out_index] for each order. Every corner on the grid lies
+// in the window (the caller stages the rows its particles can touch).
+template <typename T, int Kind, int O>
+__device__ __forceinline__ void gather_staged_particle(const T* window, int x0, T px, T py,
+                                                       T pt, T* __restrict__ out,
+                                                       int64_t order_stride, int64_t out_index,
+                                                       int nx, int ny, int nt,
+                                                       const OrderSet& orders) {
+  const Axis<T> ax = make_axis(px, nx);
+  const Axis<T> ay = make_axis(py, ny);
+  const Axis<T> at = make_axis(pt, nt);
+  const int plane = ny * nt;
+  const int base = (ax.i0 - x0) * plane + ay.i0 * nt + at.i0;
+  T v[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int cx = k >> 2, cy = (k >> 1) & 1, ct = k & 1;
+    const bool valid = ax.valid(cx) && ay.valid(cy) && at.valid(ct);
+    v[k] = valid ? window[base + cx * plane + cy * nt + ct] : T(0);
+  }
+  T w[O][8];
+  corner_weights<T, Kind, O>(ax, ay, at, orders, w);
+#pragma unroll
+  for (int o = 0; o < O; ++o) {
+    T acc = T(0);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc += w[o][k] * v[k];
+    out[o * order_stride + out_index] = acc;
+  }
+}
+
+// A one-shot barrier in shared memory for the bulk copies of one block:
+// thread 0 starts each copy, every thread waits for it.
+struct BulkStage {
+  uint64_t* barrier;
+  uint32_t phase;
+
+  // Thread 0 initialises the barrier; then the block synchronises.
+  __device__ __forceinline__ void init() {
+    if (threadIdx.x == 0) {
+      const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(barrier));
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(addr) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    phase = 0;
+    __syncthreads();
+  }
+
+  // Thread 0: copy `bytes` (a multiple of 16, both addresses 16-byte
+  // aligned) from global memory to shared memory. The block must have
+  // synchronised since its last reads of `dst`.
+  __device__ __forceinline__ void copy(void* dst, const void* src, uint32_t bytes) {
+    if (threadIdx.x != 0) return;
+    const uint32_t bar = static_cast<uint32_t>(__cvta_generic_to_shared(barrier));
+    const uint32_t to = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+    // Order the block's earlier reads of dst (generic proxy) before the
+    // copy's writes (async proxy).
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                 "r"(bytes)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+        "[%3];\n" ::"r"(to),
+        "l"(src), "r"(bytes), "r"(bar)
+        : "memory");
+  }
+
+  // Every thread: wait for the copy started last.
+  __device__ __forceinline__ void wait() {
+    const uint32_t bar = static_cast<uint32_t>(__cvta_generic_to_shared(barrier));
+    uint32_t done = 0;
+    while (!done) {
+      asm volatile(
+          "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(bar), "r"(phase)
+          : "memory");
+    }
+    phase ^= 1u;
+  }
+};
+
+// Whether `bytes` from `offset` elements past a 256-byte-aligned tensor
+// can be one bulk copy into a buffer of `budget` bytes.
+inline bool stageable(int64_t offset_bytes, int64_t bytes, int64_t budget) {
+  return bytes > 0 && bytes <= budget && bytes % 16 == 0 && offset_bytes % 16 == 0;
+}
+
+// What the launches need to know of the current card, read once per device
+// (the host's time per launch counts on paths of many small launches).
+constexpr int kCachedDevices = 64;
+
+struct DeviceLimits {
+  int device;       // the current device's index
+  int sms;          // streaming multiprocessors
+  int64_t staging;  // the shared memory a block may take for a staged grid:
+                    // the opt-in limit less 1 KB for the barrier and the
+                    // other static shared memory
+};
+
+inline cudaError_t device_limits(DeviceLimits* limits) {
+  static DeviceLimits cache[kCachedDevices] = {};
+  int device = 0;
+  cudaError_t status = cudaGetDevice(&device);
+  if (status != cudaSuccess) return status;
+  if (device < kCachedDevices && cache[device].sms > 0) {
+    *limits = cache[device];
+    return cudaSuccess;
+  }
+  int sms = 0, optin = 0;
+  status = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (status == cudaSuccess)
+    status = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (status != cudaSuccess) return status;
+  *limits = DeviceLimits{device, sms, static_cast<int64_t>(optin) - 1024};
+  if (device < kCachedDevices) cache[device] = *limits;
+  return cudaSuccess;
+}
+
+// Lets a staged kernel take the whole staging budget of dynamic shared
+// memory on the current device, once per device: `configured` is the
+// launcher's own (a static of the instantiation that launches `kernel`).
+template <typename Kernel>
+cudaError_t allow_staging(Kernel kernel, const DeviceLimits& limits,
+                          bool (&configured)[kCachedDevices]) {
+  if (limits.device < kCachedDevices && configured[limits.device]) return cudaSuccess;
+  const cudaError_t status = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(limits.staging));
+  if (status == cudaSuccess && limits.device < kCachedDevices) configured[limits.device] = true;
+  return status;
 }
 
 inline OrderSet make_orders(const int* orders, int num_orders) {
@@ -126,6 +356,61 @@ inline bool valid_orders(const int* orders, int num_orders) {
     if (orders[i] != 0 && orders[i] != 1) return false;
   }
   return true;
+}
+
+inline OrderKind order_kind(const int* orders, int num_orders) {
+  if (num_orders == 1 && orders[0] == 0 && orders[1] == 0 && orders[2] == 0)
+    return kValueOrders;
+  if (num_orders == 3) {
+    bool raised = true;
+    for (int o = 0; o < 3; ++o)
+      for (int axis = 0; axis < 3; ++axis) raised &= orders[3 * o + axis] == (o == axis);
+    if (raised) return kRaisedOrders;
+  }
+  return kGenericOrders;
+}
+
+// Whether every element index of a gather fits int32: the grids (B, C,
+// cells), the outputs (O, B, C, N) and the positions (B, N, 3).
+inline bool fits_int32(int64_t batch, int64_t num_particles, int num_components,
+                       int64_t cells, int num_orders) {
+  const int64_t limit = INT32_MAX;
+  return batch * num_components * cells <= limit &&
+         num_orders * batch * num_components * num_particles <= limit &&
+         batch * num_particles * 3 <= limit;
+}
+
+// Calls launch(Int<Kind>{}, Int<O>{}, Int<C>{}, index) with the
+// instantiation of the gather body that serves the call, `index` being an
+// int32_t or int64_t value whose type is I: the specialised order sets at C
+// = 1 and 3 where every index fits int32 (`small`); every other call the
+// generic body with O orders, C at run time and int64_t indices. Returns
+// what launch returns.
+template <typename Launch>
+cudaError_t dispatch_gather(const int* orders, int num_orders, int num_components, bool small,
+                            Launch&& launch) {
+  auto with_components = [&](auto kind, auto count) -> cudaError_t {
+    if (num_components == 1) return launch(kind, count, Int<1>{}, int32_t{});
+    if (num_components == 3) return launch(kind, count, Int<3>{}, int32_t{});
+    return launch(Int<kGenericOrders>{}, count, Int<0>{}, int64_t{});
+  };
+  switch (small ? order_kind(orders, num_orders) : kGenericOrders) {
+    case kValueOrders: return with_components(Int<kValueOrders>{}, Int<1>{});
+    case kRaisedOrders: return with_components(Int<kRaisedOrders>{}, Int<3>{});
+    default: break;
+  }
+  const auto generic = Int<kGenericOrders>{};
+  const auto runtime = Int<0>{};
+  switch (num_orders) {
+    case 1: return launch(generic, Int<1>{}, runtime, int64_t{});
+    case 2: return launch(generic, Int<2>{}, runtime, int64_t{});
+    case 3: return launch(generic, Int<3>{}, runtime, int64_t{});
+    case 4: return launch(generic, Int<4>{}, runtime, int64_t{});
+    case 5: return launch(generic, Int<5>{}, runtime, int64_t{});
+    case 6: return launch(generic, Int<6>{}, runtime, int64_t{});
+    case 7: return launch(generic, Int<7>{}, runtime, int64_t{});
+    default: return launch(generic, Int<8>{}, runtime, int64_t{});
+  }
 }
 
 }  // namespace cic

@@ -16,6 +16,7 @@ position, weigh 0.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import torch
@@ -30,7 +31,16 @@ MAX_ORDERS = 8
 
 def check_orders(orders: Orders) -> tuple[tuple[int, int, int], ...]:
     """The orders as a tuple of ``(ox, oy, ot)`` int triples; raises on more
-    than :data:`MAX_ORDERS` or on an order other than 0 or 1."""
+    than :data:`MAX_ORDERS` or on an order other than 0 or 1. The few order
+    sets of a path are checked once (the host's time per launch counts)."""
+    try:
+        return _checked_orders(orders)
+    except TypeError:  # unhashable, e.g. a list of lists
+        return _checked_orders(tuple(tuple(order) for order in orders))
+
+
+@functools.lru_cache(maxsize=256)
+def _checked_orders(orders) -> tuple[tuple[int, int, int], ...]:
     orders = tuple(tuple(int(v) for v in order) for order in orders)
     if not 1 <= len(orders) <= MAX_ORDERS:
         raise ValueError(f"Between 1 and {MAX_ORDERS} orders are supported: {orders}")
@@ -39,9 +49,12 @@ def check_orders(orders: Orders) -> tuple[tuple[int, int, int], ...]:
     return orders
 
 
-def orders_argument(orders) -> tuple[ctypes.c_void_p, int]:
-    """The orders as the C entry points take them: a pointer to ``3 * O``
-    ints and ``O``. The pointer keeps its array alive."""
+@functools.lru_cache(maxsize=256)
+def orders_argument(orders: tuple[tuple[int, int, int], ...]) -> tuple[ctypes.c_void_p, int]:
+    """The orders (a tuple, as :func:`check_orders` returns them) as the C
+    entry points take them: a pointer to ``3 * O`` ints and ``O``. The
+    pointer keeps its array alive; the few order sets of a path are made
+    once."""
     flat = (ctypes.c_int * (3 * len(orders)))(*(v for order in orders for v in order))
     return ctypes.cast(flat, ctypes.c_void_p), len(orders)
 

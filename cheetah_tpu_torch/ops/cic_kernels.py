@@ -34,7 +34,11 @@ own ``launches``.
 Gradients: :class:`GatherMulti` and :class:`DepositMulti` are the autograd
 closure of the pair (``pallas_cic.py:536-750``). Each backward calls the two
 Functions again, at the same or raised orders, so a backward, and a backward
-of a backward up to orders ``(1, 1, 1)``, runs on the kernels too.
+of a backward up to orders ``(1, 1, 1)``, runs on the kernels too. On a grid
+of the tiled pair each Function makes the plan of its positions once, in
+forward (:func:`~cheetah_tpu_torch.ops.cic_tiled.plan_tiles`), and hands it
+to the Functions its backward calls, so every launch of one node's backward
+and double backward reuses it.
 """
 
 from __future__ import annotations
@@ -59,9 +63,7 @@ from cheetah_tpu_torch.ops.nvcc import CudaLibrary
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURE = [_P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I32, _P, _I32, _P]
-LIBRARY = CudaLibrary(
-    "cic.cu", {"cic_deposit_multi": _SIGNATURE, "cic_gather_multi": _SIGNATURE}
-)
+LIBRARY = CudaLibrary("cic.cu", {"cic_deposit_multi": _SIGNATURE, "cic_gather_multi": _SIGNATURE})
 
 
 # ---------------------------------------------------------------------------
@@ -141,8 +143,9 @@ def _deposit_untiled(normalized, rows, histogram_shape, orders) -> torch.Tensor:
 
 def _gather_untiled(grids, normalized, orders) -> tuple[torch.Tensor, ...]:
     """The untiled gather on arguments :func:`check_gather_args` passed:
-    ``gather_multi_kernel`` on CUDA tensors, :func:`gather_multi_3d_reference`
-    on CPU tensors."""
+    ``gather_staged_kernel`` where a component of the grid fits shared
+    memory (the value and raised order sets), else ``gather_multi_kernel``,
+    on CUDA tensors; :func:`gather_multi_3d_reference` on CPU tensors."""
     if grids.device.type == "cpu":
         return gather_multi_3d_reference(grids, normalized, orders)
 
@@ -156,14 +159,19 @@ def _gather_untiled(grids, normalized, orders) -> tuple[torch.Tensor, ...]:
         device=grids.device,
     )
     if batch * num_particles * num_components == 0:
-        return tuple(out)
+        return out.unbind(0)
     LIBRARY.launch(
         "cic_gather_multi", grids.dtype, grids.device,
         grids.data_ptr(), normalized.data_ptr(), out.data_ptr(),
         batch, num_particles, num_components, nx, ny, nt, *orders_argument(orders),
     )
     gather_multi_3d.launches += 1
-    return tuple(out)
+    return out.unbind(0)
+
+
+def _no_plan(plan) -> None:
+    if plan is not None:
+        raise ValueError("A tile plan serves only grids of the tiled pair.")
 
 
 def deposit_multi_3d(
@@ -171,19 +179,23 @@ def deposit_multi_3d(
     rows: torch.Tensor,
     histogram_shape: tuple[int, int, int],
     orders: Orders,
+    plan: cic_tiled.TilePlan | None = None,
 ) -> torch.Tensor:
     """Multi-order CIC deposit: bin-space positions ``normalized (B, N, 3)``
     and per-order row blocks ``rows (B, O, C, N)`` -> the grid ``(B, C, nx,
     ny, nt)``, summed over the orders.
 
     Grids past :func:`fits_untiled` go to
-    :func:`~cheetah_tpu_torch.ops.cic_tiled.deposit_multi_tiled_3d`, the
-    others to the untiled ``deposit_multi_kernel`` (its plain version on CPU
-    tensors).
+    :func:`~cheetah_tpu_torch.ops.cic_tiled.deposit_multi_tiled_3d` (with
+    ``plan`` when given), the others to the untiled ``deposit_multi_kernel``
+    (its plain version on CPU tensors).
     """
     orders, histogram_shape = check_deposit_args(normalized, rows, histogram_shape, orders)
     if uses_tiled(histogram_shape):
-        return cic_tiled.deposit_multi_tiled_3d(normalized, rows, histogram_shape, orders)
+        return cic_tiled.deposit_multi_tiled_3d(
+            normalized, rows, histogram_shape, orders, plan=plan
+        )
+    _no_plan(plan)
     return _deposit_untiled(normalized, rows, histogram_shape, orders)
 
 
@@ -191,20 +203,24 @@ deposit_multi_3d.launches = 0
 
 
 def gather_multi_3d(
-    grids: torch.Tensor, normalized: torch.Tensor, orders: Orders
+    grids: torch.Tensor,
+    normalized: torch.Tensor,
+    orders: Orders,
+    plan: cic_tiled.TilePlan | None = None,
 ) -> tuple[torch.Tensor, ...]:
     """Multi-order trilinear gather: ``grids (B, C, nx, ny, nt)`` and
     bin-space positions ``normalized (B, N, 3)`` -> one ``(B, C, N)`` tensor
     per order. The exact adjoint of :func:`deposit_multi_3d`.
 
     Grids past :func:`fits_untiled` go to
-    :func:`~cheetah_tpu_torch.ops.cic_tiled.gather_multi_tiled_3d`, the
-    others to the untiled ``gather_multi_kernel`` (its plain version on CPU
-    tensors).
+    :func:`~cheetah_tpu_torch.ops.cic_tiled.gather_multi_tiled_3d` (with
+    ``plan`` when given), the others to the untiled ``gather_multi_kernel``
+    (its plain version on CPU tensors).
     """
     orders = check_gather_args(grids, normalized, orders)
     if uses_tiled(tuple(grids.shape[2:])):
-        return cic_tiled.gather_multi_tiled_3d(grids, normalized, orders)
+        return cic_tiled.gather_multi_tiled_3d(grids, normalized, orders, plan=plan)
+    _no_plan(plan)
     return _gather_untiled(grids, normalized, orders)
 
 
@@ -244,6 +260,15 @@ def _accumulate(terms: dict, axis: int, value: torch.Tensor) -> None:
     terms[axis] = value if axis not in terms else terms[axis] + value
 
 
+def _node_plan(plan, normalized: torch.Tensor, histogram_shape):
+    """The plan an autograd node hands to its launches: the one it was
+    given, else, on a grid of the tiled pair, one made from the positions'
+    values (no gradient flows through a plan), else None."""
+    if plan is not None or not uses_tiled(tuple(histogram_shape)):
+        return plan
+    return cic_tiled.plan_tiles(normalized.detach(), histogram_shape)
+
+
 class GatherMulti(torch.autograd.Function):
     """:func:`gather_multi_3d` with gradients with respect to ``grids`` and
     ``normalized``.
@@ -252,16 +277,20 @@ class GatherMulti(torch.autograd.Function):
     the same orders (the transpose, ``pallas_cic.py:617-635``); the
     positions' gradient along an axis is the gather at the orders raised on
     that axis times the output gradients, summed over components and
-    orders (the jvp, ``:570-614``, transposed).
+    orders (the jvp, ``:570-614``, transposed). ``plan`` (tiled grids only)
+    is the tile plan of ``normalized``; made in forward when not given, it
+    serves every launch of the backward.
     """
 
     @staticmethod
-    def forward(ctx, grids, normalized, orders):
+    def forward(ctx, grids, normalized, orders, plan=None):
         orders = check_orders(orders)
+        plan = _node_plan(plan, normalized, grids.shape[2:])
         ctx.orders = orders
+        ctx.plan = plan
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(grids, normalized)
-        return gather_multi_3d(grids, normalized, orders)
+        return gather_multi_3d(grids, normalized, orders, plan=plan)
 
     @staticmethod
     def backward(ctx, *grad_outs):
@@ -269,22 +298,23 @@ class GatherMulti(torch.autograd.Function):
         live = [(grad, order) for grad, order in zip(grad_outs, ctx.orders) if grad is not None]
         grad_grids = grad_normalized = None
         if not live:
-            return None, None, None
+            return None, None, None, None
         if ctx.needs_input_grad[0]:
             rows = torch.stack([grad for grad, _ in live], dim=1)
             grad_grids = DepositMulti.apply(
-                normalized, rows, tuple(grids.shape[2:]), tuple(order for _, order in live)
+                normalized, rows, tuple(grids.shape[2:]), tuple(order for _, order in live),
+                ctx.plan,
             )
         if ctx.needs_input_grad[1]:
             need = _unique(r for _, order in live for _, r in _raised(order))
             terms: dict[int, torch.Tensor] = {}
             if need:
-                raised = dict(zip(need, GatherMulti.apply(grids, normalized, need)))
+                raised = dict(zip(need, GatherMulti.apply(grids, normalized, need, ctx.plan)))
                 for grad, order in live:
                     for axis, r in _raised(order):
                         _accumulate(terms, axis, (raised[r] * grad).sum(dim=1))
             grad_normalized = _position_grad(terms, normalized[..., 0])
-        return grad_grids, grad_normalized, None
+        return grad_grids, grad_normalized, None, None
 
 
 class DepositMulti(torch.autograd.Function):
@@ -295,21 +325,24 @@ class DepositMulti(torch.autograd.Function):
     the same orders (the transpose, ``pallas_cic.py:694-707``); the
     positions' gradient along an axis is the gather at the orders raised on
     that axis, weighted by the rows (the jvp, ``:654-691``, transposed).
-    Both come from one gather over the union of the orders.
+    Both come from one gather over the union of the orders. ``plan`` as for
+    :class:`GatherMulti`.
     """
 
     @staticmethod
-    def forward(ctx, normalized, rows, histogram_shape, orders):
+    def forward(ctx, normalized, rows, histogram_shape, orders, plan=None):
         orders = check_orders(orders)
+        plan = _node_plan(plan, normalized, histogram_shape)
         ctx.orders = orders
+        ctx.plan = plan
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(normalized, rows)
-        return deposit_multi_3d(normalized, rows, histogram_shape, orders)
+        return deposit_multi_3d(normalized, rows, histogram_shape, orders, plan=plan)
 
     @staticmethod
     def backward(ctx, grad):
         if grad is None:
-            return None, None, None, None
+            return None, None, None, None, None
         normalized, rows = ctx.saved_tensors
         orders = ctx.orders
         want = list(orders) if ctx.needs_input_grad[1] else []
@@ -317,8 +350,8 @@ class DepositMulti(torch.autograd.Function):
             want += [r for order in orders for _, r in _raised(order)]
         want = _unique(want)
         if not want:
-            return None, None, None, None
-        gathered = dict(zip(want, GatherMulti.apply(grad, normalized, want)))
+            return None, None, None, None, None
+        gathered = dict(zip(want, GatherMulti.apply(grad, normalized, want, ctx.plan)))
         grad_normalized = grad_rows = None
         if ctx.needs_input_grad[0]:
             terms: dict[int, torch.Tensor] = {}
@@ -328,7 +361,7 @@ class DepositMulti(torch.autograd.Function):
             grad_normalized = _position_grad(terms, normalized[..., 0])
         if ctx.needs_input_grad[1]:
             grad_rows = torch.stack([gathered[order] for order in orders], dim=1)
-        return grad_normalized, grad_rows, None, None
+        return grad_normalized, grad_rows, None, None, None
 
 
 def differentiable_gather(

@@ -9,19 +9,53 @@ corners off the grid and for non-finite positions. The kernels are in
 ``cheetah_tpu_torch/csrc/cic_tiled.cu``; the note there says which TPU
 kernel each one replaces and how it is laid out on the card.
 
-Both the kernels and the plain versions follow one plan, made here in torch
-(:func:`tile_plan`), as the JAX package makes it outside its ``pallas_call``:
-each particle's x-tile ``clip(floor(x) // R, 0, T - 1)``, a ``torch.sort``
-by tile, and the per-tile offsets into the sorted order. A particle of tile
-``t`` touches grid rows ``t*R .. t*R + R``, an ``(R + 1)``-row window whose
-last row (the halo) is the first row of tile ``t + 1``. The plain versions
-hold the windows of all tiles side by side, deposit into or gather from
-each particle's window with the untiled plain versions' corner sums, and
-fold the halos (deposit) or write each output to the particle's original
-index (gather).
+Both the kernels and the plain versions follow one plan (:class:`TilePlan`),
+as the JAX package makes one outside its ``pallas_call``
+(``_sort_by_tile``): each particle's x-tile ``clip(floor(x) // R, 0, T -
+1)`` (NaN to tile 0), a stable sort of the particles by tile with their
+positions as payload, and the per-tile offsets into the sorted order. A
+particle of tile ``t`` touches grid rows ``t*R .. t*R + R``, an ``(R +
+1)``-row window whose last row (the halo) is the first row of tile ``t +
+1``. The plain versions hold the windows of all tiles side by side, deposit
+into or gather from each particle's window with the untiled plain versions'
+corner sums, and fold the halos (deposit) or write each output to the
+particle's original index (gather).
+
+What bounds each kernel on the card, and what the design does about it
+(device times by CUDA-graph replay on an H100 80GB HBM3 at 700 W, 1M
+particles at 128^3; PERF.md):
+
+- The plan (:func:`plan_tiles`). With ``torch.sort`` and ``searchsorted``
+  (:func:`tile_plan`, now the plain version) it took some ten launches and
+  0.107 ms. On the card it is a
+  hand-written stable counting sort in two launches (three for a large
+  count matrix): per-block tile counts, then a stable scatter of each
+  block's chunk, sorted in shared memory first so that its writes are
+  contiguous. It writes the positions in sorted order and each particle's
+  place (``rank``) as payload. Its two passes over each chunk and the
+  latency of each block's steps bound it (0.047 ms).
+- The gather reads its run's sorted positions contiguously (before, each
+  12-byte position read through ``perm`` cost its own 32-byte sector), and
+  the 8 corners of each particle from the tile's window, staged in shared
+  memory by a bulk copy where it fits (else read through L1 and L2), with
+  a body specialised on the order set. It writes the outputs in sorted
+  order, coalesced, and a second kernel moves them to the original indices
+  through ``rank``: writing them there directly, a partial sector per
+  value, cost more than the gather itself. 0.053 ms for the kernels.
+- The deposit takes the same plan; shared-memory atomics on a beam's
+  crowded cells bound it.
+- One plan per autograd node: :class:`~cheetah_tpu_torch.ops.cic_kernels.GatherMulti`
+  and :class:`~cheetah_tpu_torch.ops.cic_kernels.DepositMulti` make the plan
+  of their positions once, in forward, and hand it (``plan=``) to every
+  launch of their backward and of a double backward: 4 plans per gradient
+  of the two-kick segment instead of 10.
+- Tensor cores play no part: a gather does 8 multiply-adds per particle,
+  component and order, where the TPU's two-hot products would multiply
+  thousands of zeros for every 8 non-zeros.
 
 CPU tensors run the plain versions; CUDA tensors launch the kernels or
-raise. Each wrapper counts its kernel launches in ``launches``.
+raise. Each wrapper counts its kernel launches in ``launches``;
+:func:`tile_plan` counts its calls in ``calls``.
 """
 
 from __future__ import annotations
@@ -40,8 +74,9 @@ LIBRARY = CudaLibrary(
     {
         "cic_deposit_tiled": [_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I32,
                               _I32, _I32, _I64, _P, _I32, _P],
-        "cic_gather_tiled": [_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I32,
-                             _I32, _I64, _P, _I32, _P],
+        "cic_gather_tiled": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I32,
+                             _I32, _I32, _I64, _P, _I32, _P],
+        "cic_tile_plan": [_P, _P, _I64, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _P],
     },
 )
 
@@ -63,6 +98,11 @@ _WINDOW_ROW_BYTES = 48 * 1024
 #: block has no window, so its runs are short and spread over more blocks.
 DEPOSIT_PER_RUN = 8192
 GATHER_PER_RUN = 2048
+
+#: Particles one warp of the plan's kernels takes (``kPlanSlice`` in
+#: cic_tiled.cu): the plan's count matrix has at most ``ceil(N / 128)``
+#: chunks per tile and instance, whatever layout the kernels pick.
+_PLAN_SLICE = 128
 
 
 def tiled_bounds_ok(histogram_shape) -> bool:
@@ -95,7 +135,9 @@ def rows_per_tile(histogram_shape) -> int:
 
 
 class TilePlan(NamedTuple):
-    """The sort-by-x-tile plan shared by the kernels and the plain versions."""
+    """The sort-by-x-tile plan shared by the kernels and the plain versions,
+    made by :func:`plan_tiles` (or :func:`tile_plan`) from the positions it
+    serves; a deposit or gather given ``plan=`` must get those positions."""
 
     rows_per_tile: int
     num_tiles: int
@@ -105,13 +147,20 @@ class TilePlan(NamedTuple):
     perm: torch.Tensor
     #: ``(B, T + 1)`` int64: where each tile's particles start in the sorted order.
     offsets: torch.Tensor
+    #: ``(B, N, 3)``: the positions in sorted order.
+    sorted_positions: torch.Tensor
+    #: ``(B, N)`` int64: each particle's place in the sorted order (the
+    #: inverse of ``perm``).
+    rank: torch.Tensor
 
 
 def tile_plan(normalized: torch.Tensor, histogram_shape) -> TilePlan:
-    """Tile key, sort and per-tile offsets for bin-space positions
-    ``normalized (B, N, 3)``. The key is computed in floating point, so a
-    non-finite or huge position never meets an int cast: NaN goes to tile 0
-    and +-inf to the edge tiles, where every corner of it weighs 0."""
+    """Plain version of :func:`plan_tiles`: tile key, stable ``torch.sort``
+    and per-tile offsets for bin-space positions ``normalized (B, N, 3)``.
+    The key is computed in floating point, so a non-finite or huge position
+    never meets an int cast: NaN goes to tile 0 and +-inf to the edge tiles,
+    where every corner of it weighs 0. Counts its calls in ``calls``."""
+    tile_plan.calls += 1
     nx = histogram_shape[0]
     rows = rows_per_tile(histogram_shape)
     num_tiles = -(-nx // rows)
@@ -124,7 +173,73 @@ def tile_plan(normalized: torch.Tensor, histogram_shape) -> TilePlan:
     offsets = torch.searchsorted(
         sorted_tile, bounds.expand(tile.shape[0], -1).contiguous()
     )
-    return TilePlan(rows, num_tiles, sorted_tile, perm, offsets)
+    sorted_positions = normalized.gather(1, perm[..., None].expand(-1, -1, 3))
+    places = torch.arange(perm.shape[1], device=perm.device).expand_as(perm)
+    rank = torch.empty_like(perm).scatter_(1, perm, places)
+    return TilePlan(rows, num_tiles, sorted_tile, perm, offsets, sorted_positions, rank)
+
+
+tile_plan.calls = 0
+
+
+def plan_tiles(normalized: torch.Tensor, histogram_shape) -> TilePlan:
+    """The plan of ``normalized (B, N, 3)`` on ``histogram_shape``. CUDA
+    tensors launch the counting-sort kernels of ``cic_tiled.cu`` (two or
+    three launches, counted once in ``launches``), whose plan equals
+    :func:`tile_plan`'s exactly, the sort being stable; CPU tensors run
+    :func:`tile_plan`."""
+    if normalized.dim() != 3 or normalized.shape[-1] != 3:
+        raise ValueError(f"normalized must be (B, N, 3): {tuple(normalized.shape)}")
+    histogram_shape = tuple(int(n) for n in histogram_shape)
+    if not tiled_bounds_ok(histogram_shape):
+        raise ValueError(f"The grid is past the tiled kernels' bounds: {histogram_shape}")
+    if normalized.device.type == "cpu":
+        return tile_plan(normalized, histogram_shape)
+
+    batch, num_particles, _ = normalized.shape
+    rows = rows_per_tile(histogram_shape)
+    num_tiles = -(-histogram_shape[0] // rows)
+    device = normalized.device
+    sorted_tile = torch.empty((batch, num_particles), dtype=torch.int32, device=device)
+    perm = torch.empty((batch, num_particles), dtype=torch.int64, device=device)
+    rank = torch.empty_like(perm)
+    sorted_positions = torch.empty_like(normalized, memory_format=torch.contiguous_format)
+    empty = batch * num_particles == 0
+    offsets = (torch.zeros if empty else torch.empty)(
+        (batch, num_tiles + 1), dtype=torch.int64, device=device
+    )
+    plan = TilePlan(rows, num_tiles, sorted_tile, perm, offsets, sorted_positions, rank)
+    if empty:
+        return plan
+    counts = torch.empty(
+        batch * num_tiles * -(-num_particles // _PLAN_SLICE), dtype=torch.int32, device=device
+    )
+    normalized = normalized.contiguous()
+    LIBRARY.launch(
+        "cic_tile_plan", normalized.dtype, device,
+        normalized.data_ptr(), counts.data_ptr(), counts.numel(), perm.data_ptr(),
+        rank.data_ptr(), sorted_tile.data_ptr(), sorted_positions.data_ptr(),
+        offsets.data_ptr(), batch, num_particles, rows, num_tiles,
+    )
+    plan_tiles.launches += 1
+    return plan
+
+
+plan_tiles.launches = 0
+
+
+def _check_plan(plan: TilePlan, normalized: torch.Tensor, histogram_shape) -> TilePlan:
+    """The plan given, or one made here; raises on a plan of other shapes."""
+    if plan is None:
+        return plan_tiles(normalized, histogram_shape)
+    if (
+        plan.rows_per_tile != rows_per_tile(histogram_shape)
+        or plan.perm.shape != normalized.shape[:2]
+        or plan.sorted_positions.shape != normalized.shape
+        or plan.perm.device != normalized.device
+    ):
+        raise ValueError("The plan was not made for these positions and this grid.")
+    return plan
 
 
 # ---------------------------------------------------------------------------
@@ -132,14 +247,14 @@ def tile_plan(normalized: torch.Tensor, histogram_shape) -> TilePlan:
 # ---------------------------------------------------------------------------
 
 
-def _in_windows(normalized: torch.Tensor, plan: TilePlan):
+def _in_windows(plan: TilePlan):
     """The sorted positions with x in the frame of each particle's window,
     ``x - t*R`` (exact in floating point), and the flat offset of that
     window among the ``(T, R + 1, ny, nt)`` windows. A corner outside its
     window (row -1 of tile 0, rows past the last window) is off the grid
     too, so it weighs 0."""
-    ordered = normalized.gather(1, plan.perm[..., None].expand(-1, -1, 3))
-    tile = plan.sorted_tile.to(normalized.dtype)
+    ordered = plan.sorted_positions
+    tile = plan.sorted_tile.to(ordered.dtype)
     local = torch.cat(
         [(ordered[..., 0] - tile * plan.rows_per_tile)[..., None], ordered[..., 1:]], dim=-1
     )
@@ -151,16 +266,19 @@ def deposit_multi_tiled_3d_reference(
     rows: torch.Tensor,
     histogram_shape: tuple[int, int, int],
     orders: cic_common.Orders,
+    plan: TilePlan | None = None,
 ) -> torch.Tensor:
     """Plain version of :func:`deposit_multi_tiled_3d`: deposit the sorted
     particles into their tiles' windows, then fold each halo row into the
-    next tile's first row."""
+    next tile's first row. Makes its plan with :func:`tile_plan` unless
+    ``plan`` is given."""
     orders = cic_common.check_orders(orders)
     nx, ny, nt = histogram_shape
-    plan = tile_plan(normalized, histogram_shape)
+    if plan is None:
+        plan = tile_plan(normalized, histogram_shape)
     span, tiles = plan.rows_per_tile, plan.num_tiles
     window = (span + 1, ny, nt)
-    local, tile = _in_windows(normalized, plan)
+    local, tile = _in_windows(plan)
     rows_sorted = rows.gather(3, plan.perm[:, None, None, :].expand_as(rows))
     windows = cic_common.deposit_cells(
         local, rows_sorted, window, orders, tiles * (span + 1) * ny * nt,
@@ -173,14 +291,19 @@ def deposit_multi_tiled_3d_reference(
 
 
 def gather_multi_tiled_3d_reference(
-    grids: torch.Tensor, normalized: torch.Tensor, orders: cic_common.Orders
+    grids: torch.Tensor,
+    normalized: torch.Tensor,
+    orders: cic_common.Orders,
+    plan: TilePlan | None = None,
 ) -> tuple[torch.Tensor, ...]:
     """Plain version of :func:`gather_multi_tiled_3d`: cut the grid into the
     tiles' windows (rows past nx read 0), gather the sorted particles from
-    them, and write each output to the particle's original index."""
+    them, and write each output to the particle's original index. Makes its
+    plan with :func:`tile_plan` unless ``plan`` is given."""
     orders = cic_common.check_orders(orders)
     batch, num_components, nx, ny, nt = grids.shape
-    plan = tile_plan(normalized, (nx, ny, nt))
+    if plan is None:
+        plan = tile_plan(normalized, (nx, ny, nt))
     span, tiles = plan.rows_per_tile, plan.num_tiles
     padded = torch.nn.functional.pad(grids, (0, 0, 0, 0, 0, tiles * span + 1 - nx))
     window_rows = (
@@ -188,7 +311,7 @@ def gather_multi_tiled_3d_reference(
         + torch.arange(span + 1, device=grids.device)[None, :]
     )
     windows = padded.index_select(2, window_rows.flatten()).reshape(batch, num_components, -1)
-    local, tile = _in_windows(normalized, plan)
+    local, tile = _in_windows(plan)
     sorted_outs = cic_common.gather_cells(
         windows, local, (span + 1, ny, nt), orders, cell_offset=tile * ((span + 1) * ny * nt)
     )
@@ -206,13 +329,16 @@ def deposit_multi_tiled_3d(
     rows: torch.Tensor,
     histogram_shape: tuple[int, int, int],
     orders: cic_common.Orders,
+    plan: TilePlan | None = None,
 ) -> torch.Tensor:
     """x-tiled multi-order CIC deposit, with the contract of
     :func:`cheetah_tpu_torch.ops.cic_kernels.deposit_multi_3d`.
 
     CUDA tensors launch ``deposit_tiled_kernel`` (atomic adds, so the last
     bits change from run to run); CPU tensors run
-    :func:`deposit_multi_tiled_3d_reference`.
+    :func:`deposit_multi_tiled_3d_reference`. ``plan``, made by
+    :func:`plan_tiles` from ``normalized`` on this grid, saves making it
+    here.
     """
     orders, histogram_shape = cic_common.check_deposit_args(
         normalized, rows, histogram_shape, orders
@@ -220,7 +346,9 @@ def deposit_multi_tiled_3d(
     if not tiled_bounds_ok(histogram_shape):
         raise ValueError(f"The grid is past the tiled kernels' bounds: {histogram_shape}")
     if normalized.device.type == "cpu":
-        return deposit_multi_tiled_3d_reference(normalized, rows, histogram_shape, orders)
+        return deposit_multi_tiled_3d_reference(
+            normalized, rows, histogram_shape, orders, plan=plan
+        )
 
     batch, _, num_components, num_particles = rows.shape
     out = torch.zeros(
@@ -230,7 +358,7 @@ def deposit_multi_tiled_3d(
         return out
     normalized = normalized.contiguous()
     rows = rows.contiguous()
-    plan = tile_plan(normalized, histogram_shape)
+    plan = _check_plan(plan, normalized, histogram_shape)
     LIBRARY.launch(
         "cic_deposit_tiled", rows.dtype, rows.device,
         normalized.data_ptr(), rows.data_ptr(), plan.perm.data_ptr(),
@@ -246,20 +374,29 @@ deposit_multi_tiled_3d.launches = 0
 
 
 def gather_multi_tiled_3d(
-    grids: torch.Tensor, normalized: torch.Tensor, orders: cic_common.Orders
+    grids: torch.Tensor,
+    normalized: torch.Tensor,
+    orders: cic_common.Orders,
+    plan: TilePlan | None = None,
 ) -> tuple[torch.Tensor, ...]:
     """x-tiled multi-order trilinear gather, with the contract of
     :func:`cheetah_tpu_torch.ops.cic_kernels.gather_multi_3d`.
 
-    CUDA tensors launch ``gather_tiled_kernel``; CPU tensors run
-    :func:`gather_multi_tiled_3d_reference`.
+    CUDA tensors launch ``gather_tiled_staged_kernel`` (where a tile's
+    window fits shared memory: the value and raised order sets) or
+    ``gather_tiled_kernel`` on the plan's sorted positions,
+    which writes the outputs in sorted order, and ``unsort_kernel``, which
+    moves them to the original indices through the plan's ``rank``; CPU
+    tensors run :func:`gather_multi_tiled_3d_reference`.
+    ``plan``, made by :func:`plan_tiles` from ``normalized`` on this grid,
+    saves making it here.
     """
     orders = cic_common.check_gather_args(grids, normalized, orders)
     histogram_shape = tuple(grids.shape[2:])
     if not tiled_bounds_ok(histogram_shape):
         raise ValueError(f"The grid is past the tiled kernels' bounds: {histogram_shape}")
     if grids.device.type == "cpu":
-        return gather_multi_tiled_3d_reference(grids, normalized, orders)
+        return gather_multi_tiled_3d_reference(grids, normalized, orders, plan=plan)
 
     batch, num_components = grids.shape[:2]
     num_particles = normalized.shape[1]
@@ -268,19 +405,19 @@ def gather_multi_tiled_3d(
         dtype=grids.dtype, device=grids.device,
     )
     if batch * num_particles * num_components == 0:
-        return tuple(out)
+        return out.unbind(0)
     grids = grids.contiguous()
-    normalized = normalized.contiguous()
-    plan = tile_plan(normalized, histogram_shape)
+    plan = _check_plan(plan, normalized, histogram_shape)
+    sorted_out = torch.empty_like(out)
     LIBRARY.launch(
         "cic_gather_tiled", grids.dtype, grids.device,
-        grids.data_ptr(), normalized.data_ptr(), plan.perm.data_ptr(),
-        plan.offsets.data_ptr(), out.data_ptr(), batch, num_particles, num_components,
-        *histogram_shape, plan.num_tiles, GATHER_PER_RUN,
+        grids.data_ptr(), plan.sorted_positions.data_ptr(), plan.rank.data_ptr(),
+        plan.offsets.data_ptr(), sorted_out.data_ptr(), out.data_ptr(), batch, num_particles,
+        num_components, *histogram_shape, plan.rows_per_tile, plan.num_tiles, GATHER_PER_RUN,
         *cic_common.orders_argument(orders),
     )
     gather_multi_tiled_3d.launches += 1
-    return tuple(out)
+    return out.unbind(0)
 
 
 gather_multi_tiled_3d.launches = 0

@@ -58,6 +58,7 @@ class CudaLibrary:
         self.functions = functions
         self.handle: ctypes.CDLL | None = None
         self._lock = threading.Lock()
+        self._entries: dict = {}
 
     def path(self) -> pathlib.Path:
         digest = hashlib.sha256(self.source.read_bytes())
@@ -86,23 +87,35 @@ class CudaLibrary:
     def launch(self, name: str, dtype: torch.dtype, device: torch.device, *args) -> None:
         """Call the entry point ``name`` for ``dtype`` on the current stream
         of ``device`` (appended as the last argument) and raise if it reports
-        a CUDA error."""
-        if dtype not in _SUFFIX:
-            raise TypeError(f"The kernels take float32 or float64, not {dtype}.")
-        function = getattr(self.load(), f"{name}_{_SUFFIX[dtype]}")
-        with torch.cuda.device(device):
-            status = function(*args, torch.cuda.current_stream(device).cuda_stream)
+        a CUDA error. The host's time per call counts on paths of many small
+        launches, so the entry point is looked up once, the stream is read
+        as a raw handle (``torch.cuda.current_stream`` builds a Python object
+        each call), and the device is switched only when it is not the
+        current one."""
+        function = self._entries.get((name, dtype))
+        if function is None:
+            if dtype not in _SUFFIX:
+                raise TypeError(f"The kernels take float32 or float64, not {dtype}.")
+            function = getattr(self.load(), f"{name}_{_SUFFIX[dtype]}")
+            self._entries[(name, dtype)] = function
+        current = torch.cuda.current_device()
+        index = current if device.index is None else device.index
+        if index == current:
+            status = function(*args, torch._C._cuda_getCurrentRawStream(index))
+        else:
+            with torch.cuda.device(index):
+                status = function(*args, torch._C._cuda_getCurrentRawStream(index))
         if status != 0:
             raise RuntimeError(f"{name} launch failed with CUDA error {status}.")
 
 
-def build_all(libraries: list[CudaLibrary], verbose: bool = False) -> None:
+def build_all(libraries: list[CudaLibrary], verbose: bool = False) -> dict[str, str]:
     """Compile every library that is not built yet, one ``nvcc`` process per
     source, all started together.
 
-    :param verbose: Build even libraries that exist, also ask ptxas for each
-        kernel's registers and spills (``-Xptxas -v``), and print the
-        compiler's output.
+    :param verbose: Build even libraries that exist, and also ask ptxas for
+        each kernel's registers and spills (``-Xptxas -v``).
+    :return: The compiler's output for each source built, by file name.
     """
     jobs = []
     for library in libraries:
@@ -119,6 +132,7 @@ def build_all(libraries: list[CudaLibrary], verbose: bool = False) -> None:
         )
         jobs.append((library, target, tmp, process))
     failures = []
+    outputs = {}
     for library, target, tmp, process in jobs:
         output, _ = process.communicate()
         if process.returncode != 0:
@@ -127,8 +141,8 @@ def build_all(libraries: list[CudaLibrary], verbose: bool = False) -> None:
                 f"nvcc failed on {library.source.name} ({process.returncode}):\n{output}"
             )
             continue
-        if verbose:
-            print(f"nvcc {library.source.name}:\n{output}", flush=True)
+        outputs[library.source.name] = output
         os.replace(tmp, target)
     if failures:
         raise RuntimeError("\n".join(failures))
+    return outputs

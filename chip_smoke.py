@@ -6,8 +6,10 @@ Run from the root of the repository with no arguments::
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``cheetah_tpu_torch/csrc`` with nvcc (one
-process per source, all at once), holds each kernel against its plain
-PyTorch version on the card, drives the paths of the port through the
+process per source, all at once, reporting ptxas's registers per kernel),
+holds each kernel against its plain PyTorch version on the card (and the
+tile plan's counting sort against ``torch.sort``), times the gathers at the
+order sets the paths use, drives the paths of the port through the
 public entry points (the ARES EA env step and the 1M-particle space-charge
 segment, forward and with their gradients, the latter on the 32^3 grid of
 the untiled kernels and the 128^3 grid of the x-tiled ones), checks them
@@ -42,6 +44,11 @@ F32_OPS_PER_S = 67e12
 NUM_PARTICLES = 1_000_000
 ALL_ORDERS = tuple(itertools.product((0, 1), repeat=3))
 SEED = 0
+#: The order sets the paths ask the gather for (the forward kick; the
+#: raised set of both backward passes), with their component counts.
+RAISED = ((1, 0, 0), (0, 1, 0), (0, 0, 1))
+PATH_ORDER_SETS = [("value_c3", ((0, 0, 0),), 3), ("raised_c3", RAISED, 3),
+                   ("raised_c1", RAISED, 1)]
 
 # Tolerances of the kernels against their plain versions on the card, as a
 # fraction of max|output|. The gather sums 8 corner terms per output in the
@@ -112,6 +119,28 @@ def time_ms(fn, runs: int = 20, warmup: int = 3, per_event: int = 1) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, calls: int = 10, runs: int = 20) -> float:
+    """Device time of one call of ``fn``: ``calls`` back-to-back calls
+    captured in a CUDA graph, replayed ``runs`` times between CUDA events
+    (median). Unlike :func:`time_ms`, the host's time to enqueue a call does
+    not count, so a kernel faster than its wrapper's Python is timed as the
+    card runs it; a library call is timed the same way."""
+    fn()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = time_ms(graph.replay, runs=runs, warmup=2) / calls
+    del graph
+    return ms
+
+
 def bound(bytes_moved: float, operations: float) -> tuple[float, str]:
     """Least time on the card (ms) and what sets it."""
     byte_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
@@ -125,9 +154,20 @@ def relative_error(actual: torch.Tensor, expected: torch.Tensor) -> tuple[float,
     return absolute, absolute / expected.double().abs().max().item()
 
 
-def profile_path(label: str, fn, ms: float) -> None:
+#: Device-time families of the port's kernels in a profile, by a piece of
+#: the kernel's name.
+KERNEL_FAMILIES = {
+    "gather": ("gather_multi_kernel", "gather_staged_kernel", "gather_tiled_kernel",
+               "gather_tiled_staged_kernel", "unsort_kernel"),
+    "deposit": ("deposit_multi_kernel", "deposit_tiled_kernel"),
+    "plan": ("plan_count_kernel", "plan_scan_kernel", "plan_scatter_kernel"),
+}
+
+
+def profile_path(label: str, fn, ms: float) -> dict:
     """Device time by kernel over one call of ``fn`` (``torch.profiler``), and
-    the device's idle share against ``ms``, the call's CUDA-event time."""
+    the device's idle share against ``ms``, the call's CUDA-event time.
+    Returns the CIC kernels' device time and launches by family."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -144,6 +184,14 @@ def profile_path(label: str, fn, ms: float) -> None:
     ]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    families = {
+        family: {
+            "ms": sum(e.self_device_time_total for e in members) / 1e3,
+            "count": sum(e.count for e in members),
+        }
+        for family, pieces in KERNEL_FAMILIES.items()
+        for members in [[e for e in kernels if any(piece in e.key for piece in pieces)]]
+    }
     emit(
         "profile",
         path=label,
@@ -151,21 +199,28 @@ def profile_path(label: str, fn, ms: float) -> None:
         device_busy_ms=busy_ms,
         idle_share=max(0.0, 1.0 - busy_ms / ms),
         kernel_launches=sum(e.count for e in kernels),
+        cic_kernels=families,
         top=[
             {"kernel": e.key[:90], "ms": e.self_device_time_total / 1e3, "count": e.count}
             for e in top
         ],
     )
+    return families
 
 
-# The four kernel wrappers, each with its own launch count.
+# The kernel wrappers, each with its own launch count: the untiled pair,
+# and the tiled pair with its plan.
 def _wrappers(cic_kernels, cic_tiled) -> dict:
     return {
         "deposit_multi_3d": cic_kernels.deposit_multi_3d,
         "gather_multi_3d": cic_kernels.gather_multi_3d,
         "deposit_multi_tiled_3d": cic_tiled.deposit_multi_tiled_3d,
         "gather_multi_tiled_3d": cic_tiled.gather_multi_tiled_3d,
+        "plan_tiles": cic_tiled.plan_tiles,
     }
+
+
+TILED_WRAPPERS = ("deposit_multi_tiled_3d", "gather_multi_tiled_3d", "plan_tiles")
 
 
 def _reset_launches(wrappers: dict) -> None:
@@ -203,15 +258,52 @@ def phase_environment() -> str:
     return smi
 
 
+def _ptxas_usage(output: str) -> dict:
+    """Registers and spill stores of each kernel, from ``ptxas -v`` output,
+    by demangled name without its argument list."""
+    usage, mangled = {}, []
+    current = None
+    for line in output.splitlines():
+        if "Compiling entry function" in line:
+            current = line.split("'")[1]
+            mangled.append(current)
+            usage[current] = {"registers": None, "spill_stores": None}
+        elif current and "bytes spill stores" in line:
+            usage[current]["spill_stores"] = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif current and "Used" in line and "registers" in line:
+            usage[current]["registers"] = int(line.split("Used")[1].split("registers")[0])
+    try:
+        names = subprocess.run(
+            ["c++filt"], input="\n".join(mangled), capture_output=True, text=True, timeout=60,
+            check=True,
+        ).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = mangled
+    if len(names) != len(mangled):
+        names = mangled
+    short = {}
+    for raw, name in zip(mangled, names):
+        name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+        short[name.split("(", 1)[0]] = [usage[raw]["registers"], usage[raw]["spill_stores"]]
+    return short
+
+
 def phase_build(libraries) -> None:
     from cheetah_tpu_torch.ops import nvcc
 
     start = time.perf_counter()
-    nvcc.build_all(libraries, verbose=True)
+    outputs = nvcc.build_all(libraries, verbose=True)
+    seconds = time.perf_counter() - start
+    # [registers, spill stores] of every kernel instantiation; gather
+    # instantiations are <T, index type, order kind (0 generic, 1 value,
+    # 2 raised), orders, components (0: at run time)>.
+    usage = {source: _ptxas_usage(output) for source, output in outputs.items()}
     emit(
-        "build", seconds=time.perf_counter() - start,
+        "build", seconds=seconds,
         libraries=[str(library.path()) for library in libraries],
+        ptxas_registers_spills=usage,
     )
+    check(all(usage.values()), "ptxas reported no kernels")
 
 
 def _uniform_positions(generator, batch, shape, dtype):
@@ -237,6 +329,48 @@ def _beam_positions(generator, shape, offset, dtype):
     n = torch.tensor(shape, dtype=dtype, device="cuda")
     gauss = torch.randn((1, NUM_PARTICLES, 3), generator=generator, dtype=dtype, device="cuda")
     return n / 2 + offset + gauss * n / 6
+
+
+def _unaligned(tensor: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``tensor`` whose data starts one element past an
+    aligned address. A bulk copy needs 16-byte alignment, so the gathers
+    read such a grid through L1 and L2 even where a staged gather would
+    serve it: the way to check and time their other route."""
+    buffer = torch.empty(tensor.numel() + 1, dtype=tensor.dtype, device=tensor.device)
+    view = buffer[1:].view(tensor.shape)
+    view.copy_(tensor)
+    return view
+
+
+def _path_sets_error(gather, plain, grids, normalized) -> float:
+    """Worst relative error of a gather against its plain version over the
+    path's order sets (components 3 and 1 of ``grids``), on the route the
+    gather picks for the grid and on the L1/L2 route (:func:`_unaligned`)."""
+    worst = 0.0
+    for _, orders, components in PATH_ORDER_SETS:
+        values = grids[:, :components].contiguous()
+        want = plain(values, normalized, orders)
+        for given in (values, _unaligned(values)):
+            got = gather(given, normalized, orders)
+            worst = max(worst, *(relative_error(g, w)[1] for g, w in zip(got, want)))
+    return worst
+
+
+def _large_batch_error(cic_kernels) -> float:
+    """The untiled gather on more instances than a grid's y dimension takes
+    (65535): it runs on the L1/L2 kernel's 1-D grid. Worst relative error
+    against the plain version over the path's order sets and all 8."""
+    generator = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    batch, shape = 70_000, (4, 4, 4)
+    n = torch.tensor(shape, dtype=torch.float32, device="cuda")
+    normalized = torch.rand((batch, 8, 3), generator=generator, device="cuda") * (n + 2) - 1.5
+    grids = torch.randn((batch, 3, *shape), generator=generator, device="cuda")
+    worst = _path_sets_error(
+        cic_kernels.gather_multi_3d, cic_kernels.gather_multi_3d_reference, grids, normalized
+    )
+    got = cic_kernels.gather_multi_3d(grids, normalized, ALL_ORDERS)
+    want = cic_kernels.gather_multi_3d_reference(grids, normalized, ALL_ORDERS)
+    return max(worst, *(relative_error(g, w)[1] for g, w in zip(got, want)))
 
 
 def phase_kernels(cic_kernels) -> dict:
@@ -274,6 +408,10 @@ def phase_kernels(cic_kernels) -> dict:
         torch.cuda.synchronize()
         gather_error = max(relative_error(g, w)[1] for g, w in zip(got, want))
         check(all(bool(torch.isfinite(g).all()) for g in got), "gather produced non-finite values")
+        path_sets_error = _path_sets_error(
+            cic_kernels.gather_multi_3d, cic_kernels.gather_multi_3d_reference, grids, normalized
+        )
+        check(path_sets_error <= GATHER_TOLERANCE, f"gather error {path_sets_error} (path sets)")
         ms_gather = time_ms(
             lambda: cic_kernels.gather_multi_3d(grids, normalized, ALL_ORDERS), per_event=10
         )
@@ -291,6 +429,7 @@ def phase_kernels(cic_kernels) -> dict:
             deposit_rel_err=deposit_error, deposit_ms=ms_deposit,
             deposit_bound_ms=bound(deposit_bytes, batch * NUM_PARTICLES * 8 * 5 * orders)[0],
             gather_components=3, gather_rel_err=gather_error, gather_ms=ms_gather,
+            gather_path_sets_rel_err=path_sets_error,
             gather_bound_ms=bound(gather_bytes, batch * NUM_PARTICLES * 3 * 8 * 4 * orders)[0],
         )
         check(deposit_error <= DEPOSIT_TOLERANCE, f"deposit error {deposit_error}")
@@ -298,6 +437,11 @@ def phase_kernels(cic_kernels) -> dict:
         worst["deposit"] = max(worst["deposit"], deposit_error)
         worst["gather"] = max(worst["gather"], gather_error)
         del normalized, rows, grids, got, want
+
+    large_batch_error = _large_batch_error(cic_kernels)
+    emit("gather_large_batch", batch=70_000, grid=[4, 4, 4], particles=8,
+         rel_err=large_batch_error)
+    check(large_batch_error <= GATHER_TOLERANCE, f"gather error {large_batch_error} at B 70000")
 
     # The main path's shape: one instance, 32^3, 1M particles, the value
     # order; the deposit carries the charge (C=1), the gather the three
@@ -311,7 +455,10 @@ def phase_kernels(cic_kernels) -> dict:
     want = cic_kernels.deposit_multi_3d_reference(positions, charges, shape, cic_kernels.VALUE)
     deposit_abs, deposit_rel = relative_error(got, want)
     check(deposit_rel <= DEPOSIT_TOLERANCE, f"deposit error {deposit_rel} at the main shape")
-    deposit_ms = time_ms(
+    deposit_ms = graph_ms(
+        lambda: cic_kernels.deposit_multi_3d(positions, charges, shape, cic_kernels.VALUE)
+    )
+    deposit_eager_ms = time_ms(
         lambda: cic_kernels.deposit_multi_3d(positions, charges, shape, cic_kernels.VALUE),
         per_event=10,
     )
@@ -329,7 +476,8 @@ def phase_kernels(cic_kernels) -> dict:
     (want,) = cic_kernels.gather_multi_3d_reference(grids, nodes, cic_kernels.VALUE)
     gather_abs, gather_rel = relative_error(got, want)
     check(gather_rel <= GATHER_TOLERANCE, f"gather error {gather_rel} at the main shape")
-    gather_ms = time_ms(
+    gather_ms = graph_ms(lambda: cic_kernels.gather_multi_3d(grids, nodes, cic_kernels.VALUE))
+    gather_eager_ms = time_ms(
         lambda: cic_kernels.gather_multi_3d(grids, nodes, cic_kernels.VALUE), per_event=10
     )
     gather_plain_ms = time_ms(
@@ -354,26 +502,30 @@ def phase_kernels(cic_kernels) -> dict:
 
     library = library_gather().view(1, 3, NUM_PARTICLES)
     _, library_rel = relative_error(library, want)
-    gather_library_ms = time_ms(library_gather, per_event=10)
+    gather_library_ms = graph_ms(library_gather)
+    gather_library_eager_ms = time_ms(library_gather, per_event=10)
 
     emit(
         "kernel_main_shape",
         grid=list(shape), particles=NUM_PARTICLES,
-        deposit={"ms": deposit_ms, "plain_ms": deposit_plain_ms, "bound_ms": deposit_bound[0],
-                 "max_abs_err": deposit_abs, "rel_err": deposit_rel},
-        gather={"ms": gather_ms, "plain_ms": gather_plain_ms, "bound_ms": gather_bound[0],
-                "library_ms": gather_library_ms, "grid_sample_rel_diff": library_rel,
+        deposit={"ms": deposit_ms, "eager_ms": deposit_eager_ms, "plain_ms": deposit_plain_ms,
+                 "bound_ms": deposit_bound[0], "max_abs_err": deposit_abs, "rel_err": deposit_rel},
+        gather={"ms": gather_ms, "eager_ms": gather_eager_ms, "plain_ms": gather_plain_ms,
+                "bound_ms": gather_bound[0], "library_ms": gather_library_ms,
+                "library_eager_ms": gather_library_eager_ms, "grid_sample_rel_diff": library_rel,
                 "max_abs_err": gather_abs, "rel_err": gather_rel},
         worst_rel_err_all_orders=worst,
     )
     return {
         "deposit": dict(
-            ms=deposit_ms, plain_ms=deposit_plain_ms, bound_ms=deposit_bound[0],
-            bound_by=deposit_bound[1], library_ms=None, max_abs_err=deposit_abs,
+            ms=deposit_ms, eager_ms=deposit_eager_ms, plain_ms=deposit_plain_ms,
+            bound_ms=deposit_bound[0], bound_by=deposit_bound[1], library_ms=None,
+            max_abs_err=deposit_abs,
         ),
         "gather": dict(
-            ms=gather_ms, plain_ms=gather_plain_ms, bound_ms=gather_bound[0],
-            bound_by=gather_bound[1], library_ms=gather_library_ms, max_abs_err=gather_abs,
+            ms=gather_ms, eager_ms=gather_eager_ms, plain_ms=gather_plain_ms,
+            bound_ms=gather_bound[0], bound_by=gather_bound[1], library_ms=gather_library_ms,
+            max_abs_err=gather_abs,
         ),
     }
 
@@ -522,6 +674,28 @@ def _tiled_check_positions(generator, batch, shape, dtype):
     return normalized
 
 
+def _bits(tensor: torch.Tensor) -> torch.Tensor:
+    """The tensor's bits as integers, so that NaN compares equal to itself."""
+    kinds = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return tensor.view(kinds[tensor.dtype]) if tensor.dtype in kinds else tensor
+
+
+def _check_plan(cic_tiled, normalized, shape) -> bool:
+    """The card's counting-sort plan against ``tile_plan`` (``torch.sort``)
+    on the card: every field equal, bit for bit."""
+    card = cic_tiled.plan_tiles(normalized, shape)
+    plain = cic_tiled.tile_plan(normalized, shape)
+    torch.cuda.synchronize()
+    for field in ("offsets", "perm", "rank", "sorted_tile", "sorted_positions"):
+        check(
+            torch.equal(_bits(getattr(card, field)), _bits(getattr(plain, field))),
+            f"{shape}: the card's plan differs from tile_plan in {field}",
+        )
+    check((card.rows_per_tile, card.num_tiles) == (plain.rows_per_tile, plain.num_tiles),
+          f"{shape}: plan tiling differs")
+    return True
+
+
 def phase_kernels_tiled(cic_kernels, cic_tiled) -> dict:
     """The x-tiled kernels against their plain versions and against the
     untiled kernels on the card, at all 8 orders, B in {1, 4}, float32 and
@@ -536,6 +710,7 @@ def phase_kernels_tiled(cic_kernels, cic_tiled) -> dict:
     ]:
         check(cic_kernels.uses_tiled(shape), f"{shape} is not dispatched to the tiled kernels")
         normalized = _tiled_check_positions(generator, batch, shape, dtype)
+        plan_equal = _check_plan(cic_tiled, normalized, shape)
         rows = torch.randn(
             (batch, len(ALL_ORDERS), 1, NUM_PARTICLES), generator=generator,
             dtype=dtype, device="cuda",
@@ -558,11 +733,15 @@ def phase_kernels_tiled(cic_kernels, cic_tiled) -> dict:
               "tiled gather produced non-finite values")
         gather_error = max(relative_error(g, w)[1] for g, w in zip(got, want))
         gather_untiled = max(relative_error(g, u)[1] for g, u in zip(got, untiled))
+        gather_error = max(gather_error, _path_sets_error(
+            cic_tiled.gather_multi_tiled_3d, cic_tiled.gather_multi_tiled_3d_reference, grids,
+            normalized,
+        ))
         emit(
             "kernel_tiled_check",
             batch=batch, grid=list(shape), particles=NUM_PARTICLES, orders=len(ALL_ORDERS),
             dtype=str(dtype).removeprefix("torch."),
-            rows_per_tile=cic_tiled.rows_per_tile(shape),
+            rows_per_tile=cic_tiled.rows_per_tile(shape), plan_equals_tile_plan=plan_equal,
             deposit_rel_err=deposit_error, deposit_rel_diff_untiled=deposit_untiled,
             gather_components=3, gather_rel_err=gather_error,
             gather_rel_diff_untiled=gather_untiled,
@@ -576,6 +755,16 @@ def phase_kernels_tiled(cic_kernels, cic_tiled) -> dict:
                            ("gather_vs_untiled", gather_untiled)):
             worst[key] = max(worst[key], value)
         del normalized, rows, grids, got, want, untiled
+
+    # The plan's other layouts: past 65536 counts the scan launch runs
+    # (256^3, 1M particles), past 3040 tiles each block is one warp counting
+    # in global memory ((20000, 128, 4), 100k particles).
+    for shape, count in (((256, 256, 256), NUM_PARTICLES), ((20000, 128, 4), 100_000)):
+        normalized = _tiled_check_positions(generator, 2, shape, torch.float32)[:, :count]
+        emit("plan_check", grid=list(shape), batch=2, particles=count,
+             tiles=cic_tiled.tile_plan(normalized, shape).num_tiles,
+             plan_equals_tile_plan=_check_plan(cic_tiled, normalized.contiguous(), shape))
+        del normalized
 
     # The 128^3 path's shape: one instance, 1M particles of a Gaussian beam
     # on a grid of +-3 sigma, the value order; the deposit carries the
@@ -591,17 +780,19 @@ def phase_kernels_tiled(cic_kernels, cic_tiled) -> dict:
     deposit_abs, deposit_rel = relative_error(got, want)
     check(deposit_rel <= DEPOSIT_TOLERANCE, f"tiled deposit error {deposit_rel} at the main shape")
     deposit = {
-        "ms": time_ms(lambda: cic_tiled.deposit_multi_tiled_3d(positions, charges, shape, value),
-                      per_event=10),
+        "ms": graph_ms(lambda: cic_tiled.deposit_multi_tiled_3d(positions, charges, shape, value)),
+        "eager_ms": time_ms(
+            lambda: cic_tiled.deposit_multi_tiled_3d(positions, charges, shape, value),
+            per_event=10,
+        ),
         "plain_ms": time_ms(
             lambda: cic_tiled.deposit_multi_tiled_3d_reference(positions, charges, shape, value),
             per_event=10,
         ),
-        "untiled_ms": time_ms(
-            lambda: cic_kernels._deposit_untiled(positions, charges, shape, value),
-            per_event=10,
+        "untiled_ms": graph_ms(
+            lambda: cic_kernels._deposit_untiled(positions, charges, shape, value)
         ),
-        "plan_ms": time_ms(lambda: cic_tiled.tile_plan(positions, shape), per_event=10),
+        "plan_ms": graph_ms(lambda: cic_tiled.plan_tiles(positions, shape)),
         "max_abs_err": deposit_abs, "rel_err": deposit_rel,
     }
     # Inputs read once (positions, charges), the grid written once.
@@ -621,19 +812,37 @@ def phase_kernels_tiled(cic_kernels, cic_tiled) -> dict:
             grids, sample_grid, mode="bilinear", padding_mode="zeros", align_corners=True
         )
 
+    _check_plan(cic_tiled, nodes, shape)
+    plan = cic_tiled.plan_tiles(nodes, shape)
+    keys = torch.nan_to_num(
+        torch.floor(torch.floor(nodes[..., 0]) / plan.rows_per_tile).clamp(0, plan.num_tiles - 1)
+    ).to(torch.int32)
     gather = {
-        "ms": time_ms(lambda: cic_tiled.gather_multi_tiled_3d(grids, nodes, value), per_event=10),
+        "ms": graph_ms(lambda: cic_tiled.gather_multi_tiled_3d(grids, nodes, value)),
+        "eager_ms": time_ms(
+            lambda: cic_tiled.gather_multi_tiled_3d(grids, nodes, value), per_event=10
+        ),
+        "kernel_ms": graph_ms(
+            lambda: cic_tiled.gather_multi_tiled_3d(grids, nodes, value, plan=plan)
+        ),
         "plain_ms": time_ms(
             lambda: cic_tiled.gather_multi_tiled_3d_reference(grids, nodes, value), per_event=10
         ),
-        "untiled_ms": time_ms(
-            lambda: cic_kernels._gather_untiled(grids, nodes, value), per_event=10
-        ),
-        "library_ms": time_ms(library_gather, per_event=10),
+        "untiled_ms": graph_ms(lambda: cic_kernels._gather_untiled(grids, nodes, value)),
+        "library_ms": graph_ms(library_gather),
+        "library_eager_ms": time_ms(library_gather, per_event=10),
         "grid_sample_rel_diff": relative_error(library_gather().view(1, 3, NUM_PARTICLES), want)[1],
-        "plan_ms": time_ms(lambda: cic_tiled.tile_plan(nodes, shape), per_event=10),
+        "plan_ms": graph_ms(lambda: cic_tiled.plan_tiles(nodes, shape)),
+        "plan_eager_ms": time_ms(lambda: cic_tiled.plan_tiles(nodes, shape), per_event=10),
+        "plan_plain_ms": time_ms(lambda: cic_tiled.tile_plan(nodes, shape), per_event=10),
+        # The stable sort of the keys alone, which the earlier plan ran.
+        "plan_torch_sort_ms": graph_ms(lambda: torch.sort(keys, dim=1, stable=True)),
         "max_abs_err": gather_abs, "rel_err": gather_rel,
     }
+    # The plan must read the positions and write the permutation (8 B),
+    # the tiles (4 B) and the sorted positions once a particle.
+    plan_bound = bound(NUM_PARTICLES * (3 * 4 + 8 + 4 + 3 * 4), NUM_PARTICLES * 4)
+    plan_abs = (plan.sorted_positions - cic_tiled.tile_plan(nodes, shape).sorted_positions).abs()
     # Where the wrappers' time goes, the plans' sorts against the kernels:
     # one profile over one call of each.
     profile_path(
@@ -651,18 +860,96 @@ def phase_kernels_tiled(cic_kernels, cic_tiled) -> dict:
         grid=list(shape), particles=NUM_PARTICLES, rows_per_tile=cic_tiled.rows_per_tile(shape),
         deposit={**deposit, "bound_ms": deposit_bound[0]},
         gather={**gather, "bound_ms": gather_bound[0]},
+        plan={"ms": gather["plan_ms"], "plain_ms": gather["plan_plain_ms"],
+              "torch_sort_ms": gather["plan_torch_sort_ms"], "bound_ms": plan_bound[0]},
         worst_rel_err_all_orders=worst,
     )
     return {
+        "plan": dict(
+            ms=gather["plan_ms"], eager_ms=gather["plan_eager_ms"],
+            plain_ms=gather["plan_plain_ms"], bound_ms=plan_bound[0],
+            bound_by=plan_bound[1], library_ms=None,
+            max_abs_err=float(plan_abs.nan_to_num(0.0).max()),
+        ),
         "deposit": dict(
-            ms=deposit["ms"], plain_ms=deposit["plain_ms"], bound_ms=deposit_bound[0],
-            bound_by=deposit_bound[1], library_ms=None, max_abs_err=deposit_abs,
+            ms=deposit["ms"], eager_ms=deposit["eager_ms"], plain_ms=deposit["plain_ms"],
+            bound_ms=deposit_bound[0], bound_by=deposit_bound[1], library_ms=None,
+            max_abs_err=deposit_abs,
         ),
         "gather": dict(
-            ms=gather["ms"], plain_ms=gather["plain_ms"], bound_ms=gather_bound[0],
-            bound_by=gather_bound[1], library_ms=gather["library_ms"], max_abs_err=gather_abs,
+            ms=gather["ms"], eager_ms=gather["eager_ms"], plain_ms=gather["plain_ms"],
+            bound_ms=gather_bound[0], bound_by=gather_bound[1],
+            library_ms=gather["library_ms"], max_abs_err=gather_abs,
         ),
     }
+
+
+def phase_gather_order_sets(cic_kernels, cic_tiled) -> dict:
+    """The gathers at the order sets and component counts of the paths, on
+    the 32^3 and 64^3 grids (untiled kernels) and the 128^3 grid (tiled
+    kernels, with and without its plan), 1M particles of a Gaussian beam in
+    float32: against their plain versions, timed, with their bounds; and
+    the staged kernels against the L1/L2 ones (:func:`_unaligned`). Returns
+    the numbers by grid and set."""
+    generator = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    f32 = torch.float32
+    results = {}
+    for side in (32, 64, 128):
+        shape = (side, side, side)
+        cells = side**3
+        tiled = cic_kernels.uses_tiled(shape)
+        nodes = _beam_positions(generator, shape, 0.0, f32)
+        grids = torch.randn((1, 3, *shape), generator=generator, dtype=f32, device="cuda")
+        plan = cic_tiled.plan_tiles(nodes, shape) if tiled else None
+        for label, orders, components in PATH_ORDER_SETS:
+            values = grids[:, :components].contiguous()
+            if tiled:
+                got = cic_tiled.gather_multi_tiled_3d(values, nodes, orders)
+                want = cic_tiled.gather_multi_tiled_3d_reference(values, nodes, orders)
+            else:
+                got = cic_kernels.gather_multi_3d(values, nodes, orders)
+                want = cic_kernels.gather_multi_3d_reference(values, nodes, orders)
+            errors = [relative_error(g, w) for g, w in zip(got, want)]
+            rel = max(e[1] for e in errors)
+            check(rel <= GATHER_TOLERANCE, f"{shape} {label}: gather error {rel}")
+            wrapper = cic_tiled.gather_multi_tiled_3d if tiled else cic_kernels.gather_multi_3d
+            plain = (cic_tiled.gather_multi_tiled_3d_reference if tiled
+                     else cic_kernels.gather_multi_3d_reference)
+            entry = {
+                "ms": graph_ms(lambda: wrapper(values, nodes, orders)),
+                "eager_ms": time_ms(lambda: wrapper(values, nodes, orders), per_event=10),
+                "plain_ms": time_ms(lambda: plain(values, nodes, orders), per_event=10),
+                "max_abs_err": max(e[0] for e in errors), "rel_err": rel,
+            }
+            # The grid as the path gives it (staged in shared memory where
+            # the grid or the tile's window fits) and unaligned (read through
+            # L1 and L2), in turns; kernels alone, with the plan made before.
+            unaligned = _unaligned(values)
+            for key in ("as_given", "l1_l2", "l1_l2", "as_given"):
+                given = values if key == "as_given" else unaligned
+                got = wrapper(given, nodes, orders, **({"plan": plan} if tiled else {}))
+                rel = max(relative_error(g, w)[1] for g, w in zip(got, want))
+                check(rel <= GATHER_TOLERANCE, f"{shape} {label} {key}: gather error {rel}")
+                ms = graph_ms(
+                    lambda: wrapper(given, nodes, orders, **({"plan": plan} if tiled else {}))
+                )
+                entry[f"{key}_kernel_ms"] = min(ms, entry.get(f"{key}_kernel_ms", ms))
+            if tiled:
+                entry["kernel_ms"] = graph_ms(
+                    lambda: cic_tiled.gather_multi_tiled_3d(values, nodes, orders, plan=plan)
+                )
+            # Grid and positions read once, the O * C outputs written once.
+            size, count = 4, len(orders)
+            entry["bound_ms"] = bound(
+                size * (components * cells + NUM_PARTICLES * (3 + count * components)),
+                NUM_PARTICLES * components * 8 * 4 * count,
+            )[0]
+            results[f"{side}_{label}"] = entry
+            del got, want
+        emit("gather_order_sets", grid=list(shape), particles=NUM_PARTICLES, dtype="float32",
+             kernel="gather_multi_tiled_3d" if tiled else "gather_multi_3d",
+             sets={label: results[f"{side}_{label}"] for label, _, _ in PATH_ORDER_SETS})
+    return results
 
 
 def phase_autograd_kernels(cic_kernels, wrappers) -> None:
@@ -706,7 +993,7 @@ def phase_autograd_kernels(cic_kernels, wrappers) -> None:
         tiled = cic_kernels.uses_tiled(shape)
         used = [name for name, count in launches.items() if count > 0]
         check(
-            sorted(used) == sorted(name for name in wrappers if ("tiled" in name) == tiled),
+            sorted(used) == sorted(name for name in wrappers if (name in TILED_WRAPPERS) == tiled),
             f"{shape}: the checks launched {launches}",
         )
         results.append({"grid": list(shape), "tiled": tiled, "launches": launches})
@@ -727,11 +1014,15 @@ def _sc_value_and_grad(segment, beam, length_value):
     return value.detach(), grad
 
 
-def phase_sc_grad(ctt, wrappers, grid_shape, uses_tiled: bool) -> dict:
+def phase_sc_grad(ctt, wrappers, grid_shape, uses_tiled: bool) -> tuple[dict, dict]:
     """value_and_grad of the space-charge segment at 1M particles on the
-    card (float32): launches of the forward and of the backward, the
-    gradient against the port's float64 CPU run and against a float64
-    central difference on the card, the CUDA-event time and a profile."""
+    card (float32): launches of the forward and of the backward (tile plans
+    included, none of them by ``torch.sort``), the gradient against the
+    port's float64 CPU run and against a float64 central difference on the
+    card, the CUDA-event time and a profile. Returns the launches and the
+    profile's CIC kernel times."""
+    from cheetah_tpu_torch.ops import cic_tiled
+
     label = f"sc_grad_{grid_shape[0]}"
     generator = torch.Generator(device="cuda").manual_seed(SEED)
     beam = _bench_beam(ctt, NUM_PARTICLES, "cuda", generator)
@@ -739,23 +1030,29 @@ def phase_sc_grad(ctt, wrappers, grid_shape, uses_tiled: bool) -> dict:
 
     length = torch.tensor(0.1, device="cuda", requires_grad=True)
     segment.elements[0].length = length
+    sorts_before = cic_tiled.tile_plan.calls
     _reset_launches(wrappers)
     value = torch.sum(torch.square(segment.track(beam).px))
     forward = _launches(wrappers)
     _reset_launches(wrappers)
     (grad,) = torch.autograd.grad(value, length)
     backward = _launches(wrappers)
+    check(cic_tiled.tile_plan.calls == sorts_before, f"{label}: a plan went through torch.sort")
     check(bool(torch.isfinite(grad)) and grad.item() != 0, f"{label}: gradient {grad.item()}")
     # Per kick: forward, one deposit (charge) and one gather (forces);
     # backward, the gather's transpose (one deposit of the force
     # gradients), its raised-order gather for the positions, and the
     # deposit's raised-order gather for the positions (the charges need no
     # gradient). Only the pair that the grid is dispatched to may launch.
+    # On the tiled pair each kick's deposit and gather make one plan each,
+    # in forward, which every launch of their backward reuses.
     kind = "tiled_3d" if uses_tiled else "3d"
     expected_forward = {name: 0 for name in wrappers}
     expected_backward = dict(expected_forward)
     expected_forward.update({f"deposit_multi_{kind}": 2, f"gather_multi_{kind}": 2})
     expected_backward.update({f"deposit_multi_{kind}": 2, f"gather_multi_{kind}": 4})
+    if uses_tiled:
+        expected_forward["plan_tiles"] = 4
     check(forward == expected_forward and backward == expected_backward,
           f"{label}: launches forward {forward}, backward {backward}")
 
@@ -782,7 +1079,7 @@ def phase_sc_grad(ctt, wrappers, grid_shape, uses_tiled: bool) -> dict:
     fd_error = abs(fd - grad64.item()) / abs(grad64.item())
 
     ms = time_ms(lambda: _sc_value_and_grad(segment, beam, 0.1), runs=10, warmup=2)
-    profile_path(label, lambda: _sc_value_and_grad(segment, beam, 0.1), ms)
+    families = profile_path(label, lambda: _sc_value_and_grad(segment, beam, 0.1), ms)
     emit(
         label,
         particles=NUM_PARTICLES, grid=list(grid_shape), dtype="float32", ms=ms,
@@ -796,7 +1093,7 @@ def phase_sc_grad(ctt, wrappers, grid_shape, uses_tiled: bool) -> dict:
     check(f32_error <= SC_GRAD_F32_RTOL[grid_shape], f"{label}: f32 gradient off by {f32_error}")
     check(f64_error <= SC_GRAD_F64_RTOL, f"{label}: f64 gradient off by {f64_error}")
     check(fd_error <= SC_GRAD_FD_RTOL, f"{label}: finite difference off by {fd_error}")
-    return {name: forward[name] + backward[name] for name in wrappers}
+    return {name: forward[name] + backward[name] for name in wrappers}, families
 
 
 def phase_env_step_grad(ctt, wrappers) -> None:
@@ -860,35 +1157,37 @@ def main() -> int:
     phase_build([cic_kernels.LIBRARY, cic_tiled.LIBRARY])
     numbers = phase_kernels(cic_kernels)
     tiled_numbers = phase_kernels_tiled(cic_kernels, cic_tiled)
+    phase_gather_order_sets(cic_kernels, cic_tiled)
     phase_autograd_kernels(cic_kernels, wrappers)
     phase_env_step(ctt, wrappers)
     segment_launches = phase_space_charge(ctt, wrappers)
     phase_env_step_grad(ctt, wrappers)
     grad_launches = {
-        grid[0]: phase_sc_grad(ctt, wrappers, grid, cic_kernels.uses_tiled(grid))
+        grid[0]: phase_sc_grad(ctt, wrappers, grid, cic_kernels.uses_tiled(grid))[0]
         for grid in ((32, 32, 32), (128, 128, 128))
     }
 
-    def entry(name, source, replaces, measured):
+    def entry(name, source, replaces, measured, **extra):
         by_path = {"space_charge_segment": segment_launches[name],
                    "sc_grad_32": grad_launches[32][name], "sc_grad_128": grad_launches[128][name]}
         launches = by_path["sc_grad_32"] + by_path["sc_grad_128"]
         check(launches > 0, f"{name} was not launched on its path")
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "launches_by_path": by_path, **measured,
+            "launches": launches, "launches_by_path": by_path, **measured, **extra,
         }
 
     untiled, tiled = "cheetah_tpu_torch/csrc/cic.cu", "cheetah_tpu_torch/csrc/cic_tiled.cu"
     kernels = [
         entry("deposit_multi_3d", untiled, "cheetah_tpu/ops/pallas_cic.py:316",
               numbers["deposit"]),
-        entry("gather_multi_3d", untiled, "cheetah_tpu/ops/pallas_cic.py:238",
-              numbers["gather"]),
+        entry("gather_multi_3d", untiled, "cheetah_tpu/ops/pallas_cic.py:238", numbers["gather"]),
         entry("deposit_multi_tiled_3d", tiled, "cheetah_tpu/ops/pallas_cic_tiled.py:248",
               tiled_numbers["deposit"]),
         entry("gather_multi_tiled_3d", tiled, "cheetah_tpu/ops/pallas_cic_tiled.py:393",
               tiled_numbers["gather"]),
+        entry("plan_tiles", tiled, "cheetah_tpu/ops/pallas_cic_tiled.py:108",
+              tiled_numbers["plan"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

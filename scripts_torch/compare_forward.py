@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -193,6 +194,8 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     print(smi, flush=True)
+    # Absolute roots: each worker runs in its own root and imports from it.
+    args.old, args.new = os.path.abspath(args.old), os.path.abspath(args.new)
     runs = {args.old: [], args.new: []}
     for _ in range(args.rounds):
         for root in (args.old, args.new, args.new, args.old):
