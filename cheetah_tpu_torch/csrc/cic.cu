@@ -4,7 +4,7 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // into a shared library with a plain C interface, loaded with ctypes.
 //
-// Both kernels keep the contract of the TPU kernels they replace:
+// The kernels keep the contract of the TPU kernels they replace:
 //
 //   deposit: cheetah_tpu/ops/pallas_cic.py  _deposit_multi_x32 (:316, kernel
 //            body _deposit_multi_kernel :193 / _deposit_multi_acc :160).
@@ -21,39 +21,60 @@
 // Design. The TPU kernels build dense two-hot tiles in VMEM and contract
 // them on the MXU, with the deposit's grid accumulated in an output block
 // that the sequential TPU grid revisits from program 0. Blocks on Hopper run
-// in parallel and in no order, so nothing carries over between them: here
-// one thread handles one (instance, particle). The deposit scatters its 8
-// corners x C components (summed over the O orders in registers) with
-// atomicAdd into a grid that the wrapper zeroes; the order of the atomic sums
-// changes from run to run, so results agree with a fixed-order sum only to
-// f32 (or f64) rounding. The gather reads 8 corners per component: where a
-// component of the grid fits shared memory (32^3 in f32 is 128 KB of the
-// 227 KB; the value and raised order sets), gather_staged_kernel stages it
-// there with one bulk copy per component (Hopper's cp.async.bulk, completion
-// on an mbarrier) and each block reads its particles' corners from it;
-// elsewhere (64^3 is 1 MB, f64 32^3 is 256 KB, other order sets)
-// gather_multi_kernel reads them through L1 from the grid resident in the
-// 50 MB L2. On an H100 80GB HBM3 at 700 W the staged kernel took 0.024 ms
-// at the path's 32^3 shape (1M particles, C = 3) against 0.037 ms for the
-// L1/L2 kernel (chip_smoke.py's gather_order_sets; PERF.md).
+// in parallel and in no order, so nothing carries over between them.
+//
+// Deposit. Where `group` grid components fit one block's shared memory
+// (32^3 in float32 is 128 KB of the 227 KB), deposit_private_kernel gives
+// every block a private copy of the grid there and a share of the
+// instance's particles, one block per SM: the 8 corners of each particle go
+// to shared-memory atomics, not to the global atomics on a Gaussian beam's
+// crowded centre cells that held the first port (one thread a particle,
+// 0.206 ms at 32^3 on an H100 80GB HBM3 at 700 W). Hopper has no
+// shared-memory float add (a float atomicAdd there is a compare-and-swap
+// loop), so a float copy of the value order set holds int32 fixed point,
+// whose adds are native and ~3x faster (cic_common.cuh SharedWindow; the
+// scale comes from the copy's sum of |rows|). Each block then stores its
+// copy, zeros included, to a (B, C, copies, cells) scratch, and
+// deposit_reduce_kernel sums the copies in a fixed order; one copy writes
+// the output directly. Grids whose component passes a block's budget (64^3
+// in float32 is 1 MB, float64 32^3 256 KB) keep deposit_multi_kernel: one
+// thread a particle, global atomicAdd into a grid the wrapper zeroes. A
+// cluster of 8 blocks sharing a 64^3 copy through distributed shared
+// memory, and 8 blocks each keeping a slab of it and reading all its
+// particles, both took 2-3x as long as those global atomics (PERF.md). On
+// the H100 the privatised deposit took 0.032 ms at the path's 32^3 shape
+// (1M particles, C = 1) and 0.082 ms at C = 3 (chip_smoke.py's
+// kernel_main_shape; compare_deposits.py).
+//
+// Gather. It reads 8 corners per component: where a component of the grid
+// fits shared memory (32^3 in f32 is 128 KB of the 227 KB; the value and
+// raised order sets), gather_staged_kernel stages it there with one bulk
+// copy per component (Hopper's cp.async.bulk, completion on an mbarrier)
+// and each block reads its particles' corners from it; elsewhere (64^3 is 1
+// MB, f64 32^3 is 256 KB, other order sets) gather_multi_kernel reads them
+// through L1 from the grid resident in the 50 MB L2. On an H100 80GB HBM3
+// at 700 W the staged kernel took 0.024 ms at the path's 32^3 shape (1M
+// particles, C = 3) against 0.037 ms for the L1/L2 kernel (chip_smoke.py's
+// gather_order_sets; PERF.md).
 //
 // No tensor cores, on purpose: the gather does 8 * O * C multiply-adds per
 // particle (24M for 1M particles, one order, C = 3), and a two-hot product
 // like the TPU's would multiply thousands of zeros for every 8 non-zeros of
-// an (nx * ny)-wide row. The kernels work on loads and latency instead.
+// an (nx * ny)-wide row. The kernels work on loads, latency and atomics.
 //
 // Bound on the card: bytes, not operations. Per particle the deposit does
 // 8 * C * (O + 1) multiply-adds and the gather 8 * C * O, far below the
 // 67 TFLOP/s f32 rate for the bytes they move: positions (12 B), rows
 // (4 * O * C B) and the outputs (the grid once, or 4 * O * C B per
-// particle), at 3.35 TB/s. What limits them is not DRAM: random atomics on
-// a beam's crowded centre cells (deposit) and the latency of 8 * C
-// scattered L1/L2 reads per particle (gather). The gather is therefore
-// specialised (cic_common.cuh): the order set, the component count and
-// int32 indices at compile time, the weights made once per particle, and
-// all 8 * C loads in flight before the first multiply-add, which cuts its
-// registers and lets C components' loads overlap; and staged where the
-// grid fits shared memory, whose reads are cheaper than L1's misses.
+// particle), at 3.35 TB/s. What limits them is not DRAM: shared-memory
+// atomics, about 8M a deposit at C = 1 at a lane or two a clock per SM
+// (deposit), and the latency of 8 * C scattered L1/L2 reads per particle
+// (gather). The gather is therefore specialised (cic_common.cuh): the
+// order set, the component count and int32 indices at compile time, the
+// weights made once per particle, and all 8 * C loads in flight before the
+// first multiply-add, which cuts its registers and lets C components' loads
+// overlap; and staged where the grid fits shared memory, whose reads are
+// cheaper than L1's misses.
 
 #include "cic_common.cuh"
 
@@ -76,6 +97,7 @@ using cic::make_orders;
 using cic::order_kind;
 using cic::OrderKind;
 using cic::OrderSet;
+using cic::SharedWindow;
 using cic::stageable;
 using cic::valid_orders;
 
@@ -118,6 +140,71 @@ deposit_multi_kernel(const T* __restrict__ pos, const T* __restrict__ rows,
       atomicAdd(grid + cell, corner_sum(r, orders, cx, cy, ct, ax, ay, at));
     }
   }
+}
+
+// The privatised deposit, for grids whose `group` components fit one
+// block's shared memory (32^3 in float32 is 128 KB of the 227 KB). Grid
+// (copies, groups * batch): blockIdx.y picks the instance and the group of
+// `group` components, blockIdx.x the copy p, which takes the instance's
+// particles [N p / P, N (p + 1) / P). The block adds them into its copy of
+// the grid in shared memory (int32 fixed point for float, cic_common.cuh
+// SharedWindow), then stores every cell as T, zeros included, to dst[b, c,
+// p, cell] of a (B, C, P, cells) array: the output itself when P = 1, else
+// the scratch that deposit_reduce_kernel sums.
+template <typename T, int Kind>
+__global__ void __launch_bounds__(cic::kDepositThreads, 1)
+deposit_private_kernel(const T* __restrict__ pos, const T* __restrict__ rows,
+                       T* __restrict__ dst, int64_t num_particles, int num_components, int nx,
+                       int ny, int nt, int group, int copies, OrderSet orders) {
+  extern __shared__ __align__(16) unsigned char window_bytes[];
+  __shared__ float partial[33];
+  const int groups = (num_components + group - 1) / group;
+  const int64_t b = blockIdx.y / groups;
+  const int c0 = static_cast<int>(blockIdx.y - b * groups) * group;
+  const int pass = min(group, num_components - c0);
+  const int cells = nx * ny * nt;
+  const int copy = blockIdx.x;
+  SharedWindow<T> window{reinterpret_cast<T*>(window_bytes)};
+  // The rows of component c0, order 0, of the instance.
+  const T* component_rows = rows + (b * orders.count * num_components + c0) * num_particles;
+  const int64_t first = num_particles * copy / copies + threadIdx.x;
+  const int64_t end = num_particles * (copy + 1) / copies;
+  auto identity = [](int64_t i) { return i; };
+  cic::prepare_window<Kind>(window, pass * cells, component_rows, first, end, blockDim.x,
+                            identity, num_particles, pass, partial);
+  cic::deposit_particles<T, Kind>(
+      pos + b * num_particles * 3, component_rows, first, end, blockDim.x, identity,
+      num_particles, num_components * num_particles, pass, nx, ny, nt, orders,
+      [&](int g, int ix, int iy, int it, T value) {
+        window.add(g * cells + (ix * ny + iy) * nt + it, value);
+      });
+  __syncthreads();
+
+  for (int v = threadIdx.x; v < pass * cells; v += blockDim.x) {
+    const int g = v / cells;
+    dst[((b * num_components + c0 + g) * copies + copy) * cells + (v - g * cells)] =
+        window.read(v);
+  }
+}
+
+// out[i] = sum_p scratch[bc, p, cell] for i = bc * cells + cell: the
+// copies' sum, in a fixed order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+deposit_reduce_kernel(const T* __restrict__ scratch, T* __restrict__ out, int64_t outputs,
+                      int cells, int copies) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= outputs) return;
+  const int64_t bc = i / cells;
+  const T* s = scratch + bc * copies * cells + (i - bc * cells);
+  T acc[4] = {T(0), T(0), T(0), T(0)};
+  int p = 0;
+  for (; p + 4 <= copies; p += 4) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[q] += s[static_cast<int64_t>(p + q) * cells];
+  }
+  for (; p < copies; ++p) acc[0] += s[static_cast<int64_t>(p) * cells];
+  out[i] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
 }
 
 template <typename T, typename I, int Kind, int O, int C>
@@ -179,15 +266,64 @@ unsigned int num_blocks(int64_t work) {
   return static_cast<unsigned int>((work + kThreads - 1) / kThreads);
 }
 
+template <typename T, int Kind>
+cudaError_t deposit_private(const T* pos, const T* rows, T* out, T* scratch, int64_t batch,
+                            int64_t num_particles, int num_components, int nx, int ny, int nt,
+                            int group, int copies, const OrderSet& set, cudaStream_t stream) {
+  DeviceLimits limits;
+  cudaError_t status = device_limits(&limits);
+  if (status != cudaSuccess) return status;
+  const int64_t cells = static_cast<int64_t>(nx) * ny * nt;
+  const int groups = (num_components + group - 1) / group;
+  const size_t shared = sizeof(T) * group * cells;
+  if (static_cast<int64_t>(shared) > limits.staging || groups * batch > 65535 ||
+      (copies > 1 && scratch == nullptr))
+    return cudaErrorInvalidValue;
+  static bool configured[kCachedDevices] = {};
+  auto kernel = deposit_private_kernel<T, Kind>;
+  status = allow_staging(kernel, limits, configured);
+  if (status != cudaSuccess) return status;
+  const dim3 grid(static_cast<unsigned int>(copies), static_cast<unsigned int>(groups * batch));
+  kernel<<<grid, cic::kDepositThreads, shared, stream>>>(pos, rows, copies > 1 ? scratch : out,
+                                                         num_particles, num_components, nx, ny,
+                                                         nt, group, copies, set);
+  status = cudaGetLastError();
+  if (status != cudaSuccess || copies == 1) return status;
+  const int64_t outputs = batch * num_components * cells;
+  deposit_reduce_kernel<T><<<num_blocks(outputs), kThreads, 0, stream>>>(
+      scratch, out, outputs, static_cast<int>(cells), copies);
+  return cudaGetLastError();
+}
+
+// group > 0: the privatised deposit of `group` components a block, with
+// `copies` copies of the grid per instance and group (ops/cic_kernels.py
+// untiled_deposit_geometry sizes them from the card), into `out` directly
+// or through `scratch` (B * C * copies * cells values). group = 0:
+// deposit_multi_kernel's global atomics into `out`, which the caller zeroes.
 template <typename T>
-int deposit(const void* pos, const void* rows, void* out, int64_t batch,
-            int64_t num_particles, int num_components, int nx, int ny, int nt,
-            const int* orders, int num_orders, void* stream) {
-  if (!valid_orders(orders, num_orders)) return static_cast<int>(cudaErrorInvalidValue);
-  deposit_multi_kernel<T><<<num_blocks(batch * num_particles), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(pos), static_cast<const T*>(rows), static_cast<T*>(out),
-      batch, num_particles, num_components, nx, ny, nt, make_orders(orders, num_orders));
+int deposit(const void* pos, const void* rows, void* out, void* scratch, int64_t batch,
+            int64_t num_particles, int num_components, int nx, int ny, int nt, int group,
+            int copies, const int* orders, int num_orders, void* stream) {
+  if (!valid_orders(orders, num_orders) || group < 0 || copies < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const OrderSet set = make_orders(orders, num_orders);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* p = static_cast<const T*>(pos);
+  const T* r = static_cast<const T*>(rows);
+  T* o = static_cast<T*>(out);
+  if (group > 0) {
+    T* sc = static_cast<T*>(scratch);
+    return static_cast<int>(
+        order_kind(orders, num_orders) == cic::kValueOrders
+            ? deposit_private<T, cic::kValueOrders>(p, r, o, sc, batch, num_particles,
+                                                    num_components, nx, ny, nt, group, copies,
+                                                    set, s)
+            : deposit_private<T, cic::kGenericOrders>(p, r, o, sc, batch, num_particles,
+                                                      num_components, nx, ny, nt, group,
+                                                      copies, set, s));
+  }
+  deposit_multi_kernel<T><<<num_blocks(batch * num_particles), kThreads, 0, s>>>(
+      p, r, o, batch, num_particles, num_components, nx, ny, nt, set);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -260,18 +396,22 @@ int gather(const void* grids, const void* pos, void* out, int64_t batch,
 // synchronising and returns cudaGetLastError() (0 on success).
 extern "C" {
 
-int cic_deposit_multi_f32(const void* pos, const void* rows, void* out, int64_t batch,
-                          int64_t num_particles, int num_components, int nx, int ny,
-                          int nt, const int* orders, int num_orders, void* stream) {
-  return deposit<float>(pos, rows, out, batch, num_particles, num_components, nx, ny, nt,
-                        orders, num_orders, stream);
+int cic_device_limits(int device, int* out) { return cic::limits_of_device(device, out); }
+
+int cic_deposit_multi_f32(const void* pos, const void* rows, void* out, void* scratch,
+                          int64_t batch, int64_t num_particles, int num_components, int nx,
+                          int ny, int nt, int group, int copies, const int* orders,
+                          int num_orders, void* stream) {
+  return deposit<float>(pos, rows, out, scratch, batch, num_particles, num_components, nx, ny, nt,
+                      group, copies, orders, num_orders, stream);
 }
 
-int cic_deposit_multi_f64(const void* pos, const void* rows, void* out, int64_t batch,
-                          int64_t num_particles, int num_components, int nx, int ny,
-                          int nt, const int* orders, int num_orders, void* stream) {
-  return deposit<double>(pos, rows, out, batch, num_particles, num_components, nx, ny, nt,
-                         orders, num_orders, stream);
+int cic_deposit_multi_f64(const void* pos, const void* rows, void* out, void* scratch,
+                          int64_t batch, int64_t num_particles, int num_components, int nx,
+                          int ny, int nt, int group, int copies, const int* orders,
+                          int num_orders, void* stream) {
+  return deposit<double>(pos, rows, out, scratch, batch, num_particles, num_components, nx, ny, nt,
+                      group, copies, orders, num_orders, stream);
 }
 
 int cic_gather_multi_f32(const void* grids, const void* pos, void* out, int64_t batch,

@@ -1,5 +1,11 @@
 // Shared pieces of the multi-order CIC kernels (cic.cu, cic_tiled.cu).
 //
+// Both deposits privatise their grid or window in shared memory
+// (SharedWindow, deposit_particles below): a block adds its particles'
+// corner values there with shared-memory atomics and adds or stores each
+// cell to global memory once. A grid or window larger than one block's
+// budget takes global atomics instead (the wrappers' geometry decides).
+//
 // Per axis, with i0 = floor(p) and f = p - i0, order 0 weighs corner i0 with
 // 1 - f and corner i0 + 1 with f; order 1 (the a.e. derivative) weighs them
 // -1 and +1. A corner outside [0, n - 1] weighs 0. The range is tested in
@@ -289,6 +295,183 @@ struct BulkStage {
   }
 };
 
+// ---------------------------------------------------------------------------
+// Deposits into a grid privatised in shared memory (cic.cu, cic_tiled.cu).
+// ---------------------------------------------------------------------------
+
+// Threads of a deposit block (DEPOSIT_THREADS in ops/cic_common.py).
+constexpr int kDepositThreads = 512;
+
+// Where a block adds its corner values: a window of `group` components
+// (the whole grid, or a tile's R + 1 rows) in `local`, shared memory.
+//
+// Hopper has no shared-memory float add: atomicAdd on a float or double
+// in shared memory is a compare-and-swap loop (ATOMS.CAST.SPIN), about one
+// lane a clock on an SM, where a 32-bit integer add is native and ~3x
+// faster (scripts_torch/bench_shared_atomics.py: 61000 adds a block, 132
+// blocks, 0.071 ms against 0.024 on an H100 80GB HBM3 at 700 W). So a
+// float window with `fixed` set holds int32 fixed
+// point: value v is added as rn(v * scale), read back as int * unscale.
+// The scale (prepare_window below) bounds every sum of the window by 2^30.
+// Integer sums do not depend on their order.
+template <typename T>
+struct SharedWindow {
+  T* local;
+  bool fixed;    // float windows only: int32 fixed point
+  float scale;
+  float unscale;
+
+  __device__ __forceinline__ void add(int v, T value) const {
+    if constexpr (std::is_same<T, float>::value) {
+      if (fixed) {
+        atomicAdd(reinterpret_cast<int*>(local) + v, __float2int_rn(value * scale));
+        return;
+      }
+    }
+    atomicAdd(local + v, value);
+  }
+
+  __device__ __forceinline__ T read(int i) const {
+    if constexpr (std::is_same<T, float>::value) {
+      if (fixed) return static_cast<float>(reinterpret_cast<const int*>(local)[i]) * unscale;
+    }
+    return local[i];
+  }
+};
+
+// Every thread of the block: zeroes the `values` values of the window (16
+// bytes a store; `local` is 16-byte aligned) and, for a float window of the
+// value order set (Kind), fixes its int32 fixed point. S, the sum of
+// |rows[g * row_stride + index(i)]| over the group's components and the
+// particles first + k * stride below `end`, bounds every cell of the
+// window, since no corner weighs more than 1; scale = 2^30 / S leaves the
+// sums a factor 2 below int32's range (S is summed in float: 1e-3 of slack
+// is plenty). A term then rounds by at most S * 2^-31: with at most 16384
+// particles a copy or chunk (the wrappers' MAX_WINDOW_PARTICLES), 2^-17 of
+// the largest row. Other order sets, whose signed derivative terms cancel
+// in a cell far below S, keep float atomics, as does a window whose S is
+// not finite (a NaN or infinite row). `partial` is 33 floats of the
+// block's shared memory. Ends with the block synchronised, the window
+// ready for adds.
+template <int Kind, typename T, typename Index>
+__device__ __forceinline__ void prepare_window(SharedWindow<T>& window, int values,
+                                               const T* __restrict__ rows, int64_t first,
+                                               int64_t end, int64_t stride, Index index,
+                                               int64_t row_stride, int group, float* partial) {
+  const int quads = static_cast<int>(values * sizeof(T) / 16);
+  for (int i = threadIdx.x; i < quads; i += blockDim.x)
+    reinterpret_cast<int4*>(window.local)[i] = make_int4(0, 0, 0, 0);
+  for (int i = quads * 16 / sizeof(T) + threadIdx.x; i < values; i += blockDim.x)
+    window.local[i] = T(0);
+  window.fixed = false;
+  window.scale = window.unscale = 1.0f;
+  if constexpr (std::is_same<T, float>::value && Kind == kValueOrders) {
+    float sum = 0.0f;
+    // Eight particles' loads in flight together.
+    for (int64_t base = first; base < end; base += 8 * stride) {
+      int64_t n[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) n[u] = base + u * stride < end ? index(base + u * stride) : -1;
+      for (int g = 0; g < group; ++g) {
+#pragma unroll
+        for (int u = 0; u < 8; ++u) sum += n[u] >= 0 ? fabsf(rows[g * row_stride + n[u]]) : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) sum += __shfl_down_sync(0xffffffffu, sum, d);
+    if ((threadIdx.x & 31) == 0) partial[threadIdx.x / 32] = sum;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float total = 0.0f;
+      for (int w = 0; w < static_cast<int>(blockDim.x / 32); ++w) total += partial[w];
+      partial[32] = total;
+    }
+    __syncthreads();
+    const float total = partial[32];
+    if (isfinite(total)) {
+      window.fixed = true;
+      if (total > 0.0f) {
+        window.scale = 1073741824.0f / total;
+        window.unscale = total * (1.0f / 1073741824.0f);
+      }
+    }
+  } else {
+    __syncthreads();
+  }
+}
+
+// The deposit of particles first, first + stride, ... below `end`: for each
+// corner on the grid of each particle, and each component g < group of
+// `rows`, add(g, ix, iy, it, value) with the corner's grid indices and its
+// value summed over the orders. Particle i's position is pos[3i .. 3i + 2]
+// and its row of order o and component g rows[o * order_stride + g *
+// row_stride + index(i)]. The value order set (every path's deposit) keeps
+// the loads of kUnroll particles in flight together, so that the latency of
+// a row read through a permutation is paid once for several particles;
+// other sets take one particle at a time. A particle's axes are made after
+// its loads, to keep registers free.
+template <typename T, int Kind, typename Index, typename Add>
+__device__ __forceinline__ void deposit_particles(const T* __restrict__ pos,
+                                                  const T* __restrict__ rows, int64_t first,
+                                                  int64_t end, int64_t stride, Index index,
+                                                  int64_t row_stride, int64_t order_stride,
+                                                  int group, int nx, int ny, int nt,
+                                                  const OrderSet& orders, Add add) {
+  constexpr int kUnroll = Kind == kValueOrders ? (sizeof(T) == 4 ? 4 : 2) : 1;
+  for (int64_t base = first; base < end; base += kUnroll * stride) {
+    T px[kUnroll], py[kUnroll], pt[kUnroll];
+    int64_t n[kUnroll];
+    bool live[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t i = base + u * stride;
+      live[u] = i < end;
+      const T* p = pos + (live[u] ? i : first) * 3;
+      px[u] = p[0];
+      py[u] = p[1];
+      pt[u] = p[2];
+      n[u] = live[u] ? index(i) : 0;
+    }
+    for (int g = 0; g < group; ++g) {
+      const T* component = rows + g * row_stride;
+      if constexpr (Kind == kValueOrders) {
+        T r[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) r[u] = live[u] ? component[n[u]] : T(0);
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const Axis<T> ax = make_axis(px[u], nx);
+          const Axis<T> ay = make_axis(py[u], ny);
+          const Axis<T> at = make_axis(pt[u], nt);
+          if (!(live[u] && ax.any() && ay.any() && at.any())) continue;
+#pragma unroll
+          for (int corner = 0; corner < 8; ++corner) {
+            const int cx = corner >> 2, cy = (corner >> 1) & 1, ct = corner & 1;
+            if (!(ax.valid(cx) && ay.valid(cy) && at.valid(ct))) continue;
+            add(g, ax.i0 + cx, ay.i0 + cy, at.i0 + ct,
+                r[u] * (ax.weight(0, cx) * ay.weight(0, cy) * at.weight(0, ct)));
+          }
+        }
+      } else {
+        const Axis<T> ax = make_axis(px[0], nx);
+        const Axis<T> ay = make_axis(py[0], ny);
+        const Axis<T> at = make_axis(pt[0], nt);
+        if (!(live[0] && ax.any() && ay.any() && at.any())) continue;
+        T r[kMaxOrders];
+#pragma unroll
+        for (int o = 0; o < kMaxOrders; ++o)
+          r[o] = o < orders.count ? component[o * order_stride + n[0]] : T(0);
+#pragma unroll
+        for (int corner = 0; corner < 8; ++corner) {
+          const int cx = corner >> 2, cy = (corner >> 1) & 1, ct = corner & 1;
+          if (!(ax.valid(cx) && ay.valid(cy) && at.valid(ct))) continue;
+          add(g, ax.i0 + cx, ay.i0 + cy, at.i0 + ct, corner_sum(r, orders, cx, cy, ct, ax, ay, at));
+        }
+      }
+    }
+  }
+}
+
 // Whether `bytes` from `offset` elements past a 256-byte-aligned tensor
 // can be one bulk copy into a buffer of `budget` bytes.
 inline bool stageable(int64_t offset_bytes, int64_t bytes, int64_t budget) {
@@ -324,6 +507,24 @@ inline cudaError_t device_limits(DeviceLimits* limits) {
   *limits = DeviceLimits{device, sms, static_cast<int64_t>(optin) - 1024};
   if (device < kCachedDevices) cache[device] = *limits;
   return cudaSuccess;
+}
+
+// What the wrappers size a deposit's launch from (ops/cic_common.py
+// device_limits): out = {SMs, the staging budget of a block, the shared
+// memory of one SM}, all of device `device`.
+inline int limits_of_device(int device, int* out) {
+  int sms = 0, optin = 0, per_sm = 0;
+  cudaError_t status = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (status == cudaSuccess)
+    status = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (status == cudaSuccess)
+    status =
+        cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
+  if (status != cudaSuccess) return static_cast<int>(status);
+  out[0] = sms;
+  out[1] = optin - 1024;  // as DeviceLimits::staging
+  out[2] = per_sm;
+  return 0;
 }
 
 // Lets a staged kernel take the whole staging budget of dynamic shared

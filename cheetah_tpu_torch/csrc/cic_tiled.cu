@@ -48,20 +48,27 @@
 //   (ops/cic_tiled.py). Past 3040 tiles the counters do not fit 48 KB of
 //   shared memory: each block is then one warp that counts and places
 //   straight in its column of the global counts.
-// - deposit: each block takes one run of at most `per_run` sorted particles
-//   of one tile (a crowded tile of a Gaussian beam is split into several
-//   runs; warp 0 finds the block's run from the offsets, so the plan needs
-//   no run table), accumulates its window in shared memory with
-//   shared-memory atomics, then adds the window's nonzero cells to the
-//   zeroed global grid with atomicAdd. The halo row lands in the next
-//   tile's first row there, which folds the halo in the same pass. The
-//   window is sized from the shared-memory budget, not from the TPU's R:
-//   at 128^3 one component's window (R = 1, two rows) is 128 KB in f32 and
-//   fits; three components (the backward deposit of the force gradients)
-//   run as three passes over the block's particles, and a window that does
-//   not fit even for one component (f64 at 128^3, 256 KB) is cut into
-//   y-slabs, one pass each. Corners outside the pass's slab are skipped.
-//   It reads positions and rows through `perm`.
+// - deposit: each block takes a chunk of the sorted order, the chunks'
+//   bounds weighted so that each holds about the same work (one wave of
+//   blocks, one a SM; warp 0 finds the block's chunk from the offsets). It
+//   reads positions from the plan's sorted payload, contiguously, and rows
+//   through `perm`. It walks its chunk tile by tile: a tile's segment of
+//   at least min_window_run particles goes into the tile's window, (R + 1)
+//   rows privatised in shared memory (128 KB in float32 at 128^3: R = 1,
+//   two rows), as int32 fixed point for the value order set (Hopper has no
+//   shared-memory float add; cic_common.cuh SharedWindow), and the window
+//   is added to the zeroed global grid by one bulk reduction of the copy
+//   engine (cp.reduce.async.bulk .add.f32), where the halo row lands in
+//   the next tile's first row, which folds it; a shorter segment (a sparse
+//   edge tile, whose window would cost more to zero and flush than its
+//   atomics) adds its corners to the global grid directly, as does every
+//   segment where a window does not fit (float64 at 128^3 is 256 KB). Each
+//   component of the backward deposit (C = 3) is a block of its own. On an
+//   H100 80GB HBM3 at 700 W the kernel, given its plan, took 0.043 ms at
+//   the 128^3 path shape (1M particles, C = 1) and 0.116 ms at C = 3,
+//   against 0.129 and 0.392 ms for the first port, which read positions
+//   through `perm` and zeroed and scanned a window for every 8192-particle
+//   run (compare_deposits.py; PERF.md).
 // - gather: runs of one tile too, whose positions it reads from the plan's
 //   sorted payload, contiguously. Where a tile's window fits shared memory
 //   (gather_tiled_staged_kernel: the value and raised order sets), each
@@ -84,11 +91,12 @@
 // is near that bound. The plan's two passes over each chunk and the
 // latency of its per-block steps bound the plan; the scattered reads of
 // the unsort and the windows' copies bound the gather. Shared-memory
-// atomics on the crowded centre cells and the flush of each block's window
-// limit the deposit, and its reads through `perm` are scattered (one
-// 32-byte sector per 12-byte position). Atomics change the order of the
-// deposit's sums from run to run; the plan and the gather are exact and
-// deterministic.
+// atomics (about 8M a deposit at C = 1, a lane or two a clock per SM), the
+// scattered reads of rows through `perm` and each window's zeroing and
+// flush limit the deposit. Its windows' int32 sums are exact, but the
+// windows and the direct corners meet in the global grid by float atomics
+// in an order that changes from run to run; the plan and the gather are
+// exact and deterministic.
 
 #include "cic_common.cuh"
 
@@ -97,7 +105,6 @@ namespace {
 using cic::allow_staging;
 using cic::Axis;
 using cic::BulkStage;
-using cic::corner_sum;
 using cic::device_limits;
 using cic::DeviceLimits;
 using cic::dispatch_gather;
@@ -105,16 +112,15 @@ using cic::fits_int32;
 using cic::gather_particle;
 using cic::gather_staged_particle;
 using cic::kCachedDevices;
-using cic::kMaxOrders;
 using cic::make_axis;
 using cic::make_orders;
 using cic::order_kind;
 using cic::OrderKind;
 using cic::OrderSet;
+using cic::SharedWindow;
 using cic::stageable;
 using cic::valid_orders;
 
-constexpr int kDepositThreads = 512;
 constexpr int kGatherThreads = 256;
 
 struct Run {
@@ -169,85 +175,298 @@ __device__ __forceinline__ void block_run(const int64_t* __restrict__ offsets, i
   __syncthreads();
 }
 
+// Adds a window of `values` cells ((g, lx, y, t), t fastest) for tile rows
+// x0 .. to the grid; rows past the grid (the last tile's halo) are left
+// out. Every thread of the block calls it. A float window on a 16-byte-
+// aligned grid whose planes are whole groups of 4 cells is first made
+// float in place, then added by Hopper's bulk reduction (one thread issues
+// cp.reduce.async.bulk .add.f32 per component: the copy engine adds the
+// whole window in L2, with no atomic instruction issued per cell); the
+// block waits until the engine has read the window. Other windows add
+// their nonzero cells one atomicAdd each.
 template <typename T>
-__global__ void __launch_bounds__(kDepositThreads)
-deposit_tiled_kernel(const T* __restrict__ pos, const T* __restrict__ rows,
-                     const int64_t* __restrict__ perm, const int64_t* __restrict__ offsets,
-                     T* __restrict__ out, int64_t num_particles, int num_components, int nx,
-                     int ny, int nt, int rows_per_tile, int num_tiles, int64_t per_run,
-                     int components_per_pass, int ny_per_pass, OrderSet orders) {
-  extern __shared__ unsigned char shared_bytes[];
-  T* window = reinterpret_cast<T*>(shared_bytes);
-  __shared__ Run run;
-  block_run(offsets, num_tiles, per_run, &run);
-  if (run.tile < 0) return;
-
-  const int64_t b = blockIdx.y;
-  const int x0 = run.tile * rows_per_tile;  // global row of window row 0
-  const int window_rows = rows_per_tile + 1;
-  const int num_orders = orders.count;
-  const int64_t cells = static_cast<int64_t>(nx) * ny * nt;
-  const int64_t* order = perm + b * num_particles;
-
-  for (int c0 = 0; c0 < num_components; c0 += components_per_pass) {
-    const int pass_components = min(components_per_pass, num_components - c0);
-    for (int y0 = 0; y0 < ny; y0 += ny_per_pass) {
-      const int pass_ny = min(ny_per_pass, ny - y0);
-      const int component_cells = window_rows * pass_ny * nt;
-      const int pass_cells = pass_components * component_cells;
-      for (int i = threadIdx.x; i < pass_cells; i += blockDim.x) window[i] = T(0);
-      __syncthreads();
-
-      for (int64_t i = run.start + threadIdx.x; i < run.end; i += blockDim.x) {
-        const int64_t n = order[i];
-        const T* p = pos + (b * num_particles + n) * 3;
-        const Axis<T> ax = make_axis(p[0], nx);
-        const Axis<T> ay = make_axis(p[1], ny);
-        const Axis<T> at = make_axis(p[2], nt);
-        if (!(ax.any() && ay.any() && at.any())) continue;
-        for (int cc = 0; cc < pass_components; ++cc) {
-          const int c = c0 + cc;
-          T r[kMaxOrders];
-#pragma unroll
-          for (int o = 0; o < kMaxOrders; ++o) {
-            r[o] = o < num_orders
-                       ? rows[((b * num_orders + o) * num_components + c) * num_particles + n]
-                       : T(0);
-          }
-          T* component = window + cc * component_cells;
-#pragma unroll
-          for (int corner = 0; corner < 8; ++corner) {
-            const int cx = corner >> 2, cy = (corner >> 1) & 1, ct = corner & 1;
-            if (!(ax.valid(cx) && ay.valid(cy) && at.valid(ct))) continue;
-            const int lx = ax.i0 + cx - x0;
-            const int ly = ay.i0 + cy - y0;
-            if (lx < 0 || lx >= window_rows || ly < 0 || ly >= pass_ny) continue;
-            atomicAdd(component + (lx * pass_ny + ly) * nt + (at.i0 + ct),
-                      corner_sum(r, orders, cx, cy, ct, ax, ay, at));
-          }
+__device__ __forceinline__ void flush_window(const SharedWindow<T>& window, T* __restrict__ grid,
+                                             int values, int window_cells, int plane,
+                                             int64_t cells, int x0, int nx) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (plane % 4 == 0 && reinterpret_cast<uintptr_t>(grid) % 16 == 0) {
+      if (window.fixed) {
+        for (int q = threadIdx.x; q < values / 4; q += blockDim.x) {
+          const int4 v = reinterpret_cast<const int4*>(window.local)[q];
+          reinterpret_cast<float4*>(window.local)[q] =
+              make_float4(v.x * window.unscale, v.y * window.unscale, v.z * window.unscale,
+                          v.w * window.unscale);
         }
       }
+      // The block's writes (generic proxy) before the copy engine's reads.
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncthreads();
-
-      // Flush: cells are (cc, lx, ly, t), t fastest, so that neighbouring
-      // threads add to neighbouring global addresses.
-      const int plane = pass_ny * nt;
-      for (int i = threadIdx.x; i < pass_cells; i += blockDim.x) {
-        const T value = window[i];
-        if (value == T(0)) continue;
-        const int cc = i / component_cells;
-        const int rest = i - cc * component_cells;
-        const int lx = rest / plane;
-        const int gx = x0 + lx;
-        if (gx >= nx) continue;  // the last tile's halo lies past the grid
-        const int in_plane = rest - lx * plane;
-        atomicAdd(out + (b * num_components + c0 + cc) * cells +
-                      static_cast<int64_t>(gx) * ny * nt + static_cast<int64_t>(y0) * nt +
-                      in_plane,
-                  value);
+      if (threadIdx.x == 0) {
+        const int rows = min(window_cells / plane, nx - x0);
+        const uint32_t bytes = static_cast<uint32_t>(rows) * plane * sizeof(float);
+        for (int g = 0; g < values / window_cells; ++g) {
+          const uint32_t from = static_cast<uint32_t>(
+              __cvta_generic_to_shared(window.local + g * window_cells));
+          float* to = grid + g * cells + static_cast<int64_t>(x0) * plane;
+          asm volatile(
+              "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::"l"(
+                  to),
+              "r"(from), "r"(bytes)
+              : "memory");
+        }
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
       }
-      __syncthreads();
+      return;
     }
+  }
+  for (int v = threadIdx.x; v < values; v += blockDim.x) {
+    const T value = window.read(v);
+    if (value == T(0)) continue;
+    const int g = v / window_cells;
+    const int rest = v - g * window_cells;
+    if (x0 + rest / plane >= nx) continue;  // the last tile's halo lies past the grid
+    atomicAdd(grid + g * cells + static_cast<int64_t>(x0) * plane + rest, value);
+  }
+}
+
+// A particle of a tile whose segment is deposited straight to the global
+// grid weighs 3 windowed ones in the chunks' split: its 8 corners are
+// scattered global atomics, a windowed particle's 8 are shared-memory ones.
+constexpr int64_t kDirectWeight = 3;
+
+// Warp 0 of the block: chunk k of `chunks` of the instance whose tile
+// offsets are `offsets` (T + 1 of them), as sorted indices out[0] ..
+// out[1], and the tile of its first particle, out[2]. The chunks split the
+// particles' total weight evenly: a particle weighs kDirectWeight in a tile
+// of fewer than `min_window_run` (or every tile when not `windowed`), else
+// 1, and a windowed tile weighs `min_window_run` more for its window's
+// zeroing and flush, charged to the chunk that holds the tile's first
+// particle. So a chunk of direct adds, or one that starts two windows,
+// holds fewer particles.
+__device__ void weighted_chunk(const int64_t* __restrict__ offsets, int num_tiles,
+                               int64_t min_window_run, bool windowed, int64_t chunks, int64_t k,
+                               int64_t* out) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  // A tile's weight: its window's (at its first particle), then each
+  // particle's.
+  auto window_weight = [&](int64_t count) {
+    return windowed && count >= min_window_run ? min_window_run : int64_t{0};
+  };
+  auto unit = [&](int64_t count) {
+    return windowed && count >= min_window_run ? int64_t{1} : kDirectWeight;
+  };
+  int64_t total = 0;
+  for (int t0 = 0; t0 < num_tiles; t0 += 32) {
+    const int t = t0 + lane;
+    const int64_t count = t < num_tiles ? offsets[t + 1] - offsets[t] : 0;
+    int64_t weight = count * unit(count) + window_weight(count);
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) weight += __shfl_xor_sync(full, weight, d);
+    total += weight;
+  }
+  // floor(total * j / chunks) without overflow.
+  auto split = [&](int64_t j) {
+    return (total / chunks) * j + (total % chunks) * j / chunks;
+  };
+  const int64_t target[2] = {split(k), split(k + 1)};
+  if (lane == 0) {
+    out[0] = out[1] = offsets[num_tiles];
+    out[2] = num_tiles;
+  }
+  __syncwarp();
+  int64_t before = 0;
+  for (int t0 = 0; t0 < num_tiles; t0 += 32) {
+    const int t = t0 + lane;
+    const int64_t count = t < num_tiles ? offsets[t + 1] - offsets[t] : 0;
+    const int64_t each = unit(count);
+    const int64_t head = window_weight(count);
+    const int64_t weight = count * each + head;
+    int64_t inclusive = weight;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int64_t v = __shfl_up_sync(full, inclusive, d);
+      if (lane >= d) inclusive += v;
+    }
+    const int64_t from = before + inclusive - weight;  // this tile's first weight
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      // The first particle whose weight position reaches the target.
+      if (count > 0 && from <= target[e] && target[e] < from + weight) {
+        const int64_t past = target[e] - from - head;
+        out[e] = offsets[t] + (past > 0 ? (past + each - 1) / each : 0);
+        if (e == 0) out[2] = t;
+      }
+    }
+    before += __shfl_sync(full, inclusive, 31);
+  }
+}
+
+// Rows a thread keeps in registers for deposit_cached_rows.
+constexpr int kCachedRows = 16;
+
+// One component of the value order set, float, for a segment [first, last)
+// of at most kCachedRows particles a thread: each thread reads its
+// particles' rows through `order` once, all kCachedRows loads in flight,
+// keeps them in registers for the window's fixed point (prepare_window's
+// S, here a block sum of the cached rows) and for the adds, so that the
+// scattered read is paid once. Ends with the adds done (not synchronised).
+template <typename Add>
+__device__ __forceinline__ void deposit_cached_rows(SharedWindow<float>& window,
+                                                    const float* __restrict__ pos,
+                                                    const float* __restrict__ rows,
+                                                    const int64_t* __restrict__ order,
+                                                    int64_t first, int64_t last, int nx, int ny,
+                                                    int nt, int values, float* partial,
+                                                    Add add) {
+  float r[kCachedRows];
+  float sum = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kCachedRows; ++k) {
+    const int64_t i = first + threadIdx.x + static_cast<int64_t>(k) * blockDim.x;
+    r[k] = i < last ? rows[order[i]] : 0.0f;
+  }
+#pragma unroll
+  for (int k = 0; k < kCachedRows; ++k) sum += fabsf(r[k]);
+  // The block's sum, as prepare_window takes it, with the window zeroed.
+  const int quads = values / 4;
+  for (int q = threadIdx.x; q < quads; q += blockDim.x)
+    reinterpret_cast<int4*>(window.local)[q] = make_int4(0, 0, 0, 0);
+  for (int v = quads * 4 + threadIdx.x; v < values; v += blockDim.x) window.local[v] = 0.0f;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) sum += __shfl_down_sync(0xffffffffu, sum, d);
+  if ((threadIdx.x & 31) == 0) partial[threadIdx.x / 32] = sum;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float total = 0.0f;
+    for (int w = 0; w < static_cast<int>(blockDim.x / 32); ++w) total += partial[w];
+    partial[32] = total;
+  }
+  __syncthreads();
+  const float total = partial[32];
+  window.fixed = isfinite(total);
+  window.scale = window.unscale = 1.0f;
+  if (window.fixed && total > 0.0f) {
+    window.scale = 1073741824.0f / total;
+    window.unscale = total * (1.0f / 1073741824.0f);
+  }
+  // Positions four particles at a time, their loads in flight together.
+#pragma unroll
+  for (int k0 = 0; k0 < kCachedRows; k0 += 4) {
+    float px[4], py[4], pt[4];
+    bool live[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int64_t i = first + threadIdx.x + static_cast<int64_t>(k0 + u) * blockDim.x;
+      live[u] = i < last;
+      const float* p = pos + (live[u] ? i : first) * 3;
+      px[u] = p[0];
+      py[u] = p[1];
+      pt[u] = p[2];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const Axis<float> ax = make_axis(px[u], nx);
+      const Axis<float> ay = make_axis(py[u], ny);
+      const Axis<float> at = make_axis(pt[u], nt);
+      if (!(live[u] && ax.any() && ay.any() && at.any())) continue;
+#pragma unroll
+      for (int corner = 0; corner < 8; ++corner) {
+        const int cx = corner >> 2, cy = (corner >> 1) & 1, ct = corner & 1;
+        if (!(ax.valid(cx) && ay.valid(cy) && at.valid(ct))) continue;
+        add(0, ax.i0 + cx, ay.i0 + cy, at.i0 + ct,
+            r[k0 + u] * (ax.weight(0, cx) * ay.weight(0, cy) * at.weight(0, ct)));
+      }
+    }
+  }
+}
+
+// The x-tiled deposit. Grid (chunks, groups * batch): blockIdx.y picks the
+// instance and the group of `group` components, blockIdx.x the chunk of the
+// instance's sorted particles (weighted_chunk), so that one wave of blocks
+// of equal work fills the card. The particles' positions come from the
+// plan's sorted payload, contiguously; their rows through `perm`.
+//
+// A block walks its chunk tile by tile. A segment of one tile of at least
+// `min_window_run` particles is deposited into the tile's window (R + 1
+// rows of ny * nt cells per component), privatised in shared memory (int32
+// fixed point for float, cic_common.cuh SharedWindow), and the window's
+// cells are added to the zeroed global grid (flush_window): the halo row
+// lands in the next tile's first row there, which folds it. A shorter
+// segment, or every segment where a window does not fit (`windowed` 0),
+// adds its corners to the global grid directly: its window would cost more
+// to zero and flush than its particles' atomics.
+template <typename T, int Kind>
+__global__ void __launch_bounds__(cic::kDepositThreads, 1)
+deposit_tiled_kernel(const T* __restrict__ sorted_pos, const T* __restrict__ rows,
+                     const int64_t* __restrict__ perm, const int64_t* __restrict__ offsets,
+                     T* __restrict__ out, int64_t num_particles, int num_components, int nx,
+                     int ny, int nt, int rows_per_tile, int num_tiles, int group, int windowed,
+                     int64_t min_window_run, OrderSet orders) {
+  extern __shared__ __align__(16) unsigned char window_bytes[];
+  __shared__ float partial[33];
+  __shared__ int64_t chunk[3];
+  const int groups = (num_components + group - 1) / group;
+  const int64_t b = blockIdx.y / groups;
+  const int c0 = static_cast<int>(blockIdx.y - b * groups) * group;
+  const int pass = min(group, num_components - c0);
+  const int64_t* tile_start = offsets + b * (num_tiles + 1);
+  if (threadIdx.x < 32)
+    weighted_chunk(tile_start, num_tiles, min_window_run, windowed, gridDim.x, blockIdx.x, chunk);
+  __syncthreads();
+  const int64_t start = chunk[0];
+  const int64_t end = chunk[1];
+
+  const int plane = ny * nt;
+  const int window_cells = (rows_per_tile + 1) * plane;
+  const int64_t cells = static_cast<int64_t>(nx) * plane;
+  const int64_t* order = perm + b * num_particles;
+  const T* pos = sorted_pos + b * num_particles * 3;
+  // The rows of component c0, order 0, of the instance.
+  const T* component_rows = rows + (b * orders.count * num_components + c0) * num_particles;
+  const int64_t order_stride = static_cast<int64_t>(num_components) * num_particles;
+  T* grid = out + (b * num_components + c0) * cells;
+  SharedWindow<T> window{reinterpret_cast<T*>(window_bytes)};
+  auto through_perm = [order](int64_t i) { return order[i]; };
+
+  for (int t = static_cast<int>(chunk[2]); t < num_tiles && tile_start[t] < end; ++t) {
+    const int64_t first = max(start, tile_start[t]);
+    const int64_t last = min(end, tile_start[t + 1]);
+    if (last <= first) continue;
+    const int x0 = t * rows_per_tile;  // global row of window row 0
+    if (!windowed || last - first < min_window_run) {
+      cic::deposit_particles<T, Kind>(
+          pos, component_rows, first + threadIdx.x, last, blockDim.x, through_perm,
+          num_particles, order_stride, pass, nx, ny, nt, orders,
+          [&](int g, int ix, int iy, int it, T value) {
+            atomicAdd(grid + g * cells + (static_cast<int64_t>(ix) * ny + iy) * nt + it, value);
+          });
+      continue;
+    }
+    auto window_add = [&](int g, int ix, int iy, int it, T value) {
+      const int lx = ix - x0;  // in [0, R] for a particle of this tile
+      if (lx >= 0 && lx <= rows_per_tile)
+        window.add(g * window_cells + (lx * ny + iy) * nt + it, value);
+    };
+    if constexpr (Kind == cic::kValueOrders && std::is_same<T, float>::value) {
+      if (pass == 1 && last - first <= kCachedRows * static_cast<int64_t>(blockDim.x)) {
+        deposit_cached_rows(window, pos, component_rows, order, first, last, nx, ny, nt,
+                            pass * window_cells, partial, window_add);
+        __syncthreads();
+        flush_window(window, grid, pass * window_cells, window_cells, plane, cells, x0, nx);
+        __syncthreads();  // the flush's reads are done before the next zeroing
+        continue;
+      }
+    }
+    cic::prepare_window<Kind>(window, pass * window_cells, component_rows, first + threadIdx.x,
+                              last, blockDim.x, through_perm, num_particles, pass, partial);
+    cic::deposit_particles<T, Kind>(pos, component_rows, first + threadIdx.x, last, blockDim.x,
+                                    through_perm, num_particles, order_stride, pass, nx, ny, nt,
+                                    orders, window_add);
+    __syncthreads();
+    flush_window(window, grid, pass * window_cells, window_cells, plane, cells, x0, nx);
+    __syncthreads();  // the flush's reads are done before the next zeroing
   }
 }
 
@@ -720,46 +939,62 @@ unsigned int max_runs(int64_t num_particles, int num_tiles, int64_t per_run) {
   return static_cast<unsigned int>((num_particles + per_run - 1) / per_run + num_tiles);
 }
 
+template <typename T, int Kind>
+cudaError_t deposit_tiled_launch(const T* sorted_pos, const T* rows, const int64_t* perm,
+                                 const int64_t* offsets, T* out, int64_t batch,
+                                 int64_t num_particles, int num_components, int nx, int ny,
+                                 int nt, int rows_per_tile, int num_tiles, int64_t per_run,
+                                 int group, int64_t min_window_run, const OrderSet& set,
+                                 cudaStream_t stream) {
+  DeviceLimits limits;
+  cudaError_t status = device_limits(&limits);
+  if (status != cudaSuccess) return status;
+  const int64_t window_bytes =
+      static_cast<int64_t>(sizeof(T)) * group * (rows_per_tile + 1) * ny * nt;
+  const bool windowed = window_bytes <= limits.staging;
+  const int groups = (num_components + group - 1) / group;
+  const int64_t chunks = (num_particles + per_run - 1) / per_run;
+  if (groups * batch > 65535 || chunks > INT32_MAX) return cudaErrorInvalidValue;
+  static bool configured[kCachedDevices] = {};
+  auto kernel = deposit_tiled_kernel<T, Kind>;
+  status = allow_staging(kernel, limits, configured);
+  if (status != cudaSuccess) return status;
+  const dim3 grid(static_cast<unsigned int>(chunks), static_cast<unsigned int>(groups * batch));
+  kernel<<<grid, cic::kDepositThreads, windowed ? window_bytes : 0, stream>>>(
+      sorted_pos, rows, perm, offsets, out, num_particles, num_components, nx, ny, nt,
+      rows_per_tile, num_tiles, group, windowed ? 1 : 0, min_window_run, set);
+  return cudaGetLastError();
+}
+
+// The deposit's launch, sized by ops/cic_tiled.py tiled_deposit_geometry:
+// `group` components a block, N / per_run chunks of the sorted particles,
+// windows for tile segments of `min_window_run` particles or more where the
+// window fits shared memory; else every corner is added to the global grid
+// directly. `out` is zeroed by the caller.
 template <typename T>
-int deposit_tiled(const void* pos, const void* rows, const void* perm, const void* offsets,
-                  void* out, int64_t batch, int64_t num_particles, int num_components,
-                  int nx, int ny, int nt, int rows_per_tile, int num_tiles,
-                  int64_t per_run, const int* orders, int num_orders, void* stream) {
+int deposit_tiled(const void* sorted_pos, const void* rows, const void* perm,
+                  const void* offsets, void* out, int64_t batch, int64_t num_particles,
+                  int num_components, int nx, int ny, int nt, int rows_per_tile, int num_tiles,
+                  int64_t per_run, int group, int64_t min_window_run, const int* orders,
+                  int num_orders, void* stream) {
   if (!valid_orders(orders, num_orders) || rows_per_tile < 1 || num_tiles < 1 ||
-      per_run < 1 || batch > 65535)
+      per_run < 1 || group < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  int device = 0, optin = 0;
-  cudaError_t status = cudaGetDevice(&device);
-  if (status == cudaSuccess)
-    status = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (status != cudaSuccess) return static_cast<int>(status);
-  // The window's budget: the block's opt-in shared memory, less the static
-  // Run and a margin.
-  const size_t budget = static_cast<size_t>(optin) - 1024;
-  const size_t y_row = static_cast<size_t>(rows_per_tile + 1) * nt * sizeof(T);
-  if (y_row > budget) return static_cast<int>(cudaErrorInvalidValue);
-  // y-slabs of equal size when one component's window does not fit; else
-  // as many components per pass as fit.
-  const int fit = static_cast<int>(budget / y_row);
-  const int slabs = (ny + fit - 1) / fit;
-  const int ny_per_pass = (ny + slabs - 1) / slabs;
-  int components_per_pass = 1;
-  if (slabs == 1) {
-    const int by_budget = static_cast<int>(budget / (y_row * ny));
-    components_per_pass = by_budget < num_components ? by_budget : num_components;
-  }
-  const size_t shared = y_row * ny_per_pass * components_per_pass;
-  auto kernel = deposit_tiled_kernel<T>;
-  status = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(shared));
-  if (status != cudaSuccess) return static_cast<int>(status);
-  const dim3 grid(max_runs(num_particles, num_tiles, per_run), static_cast<unsigned int>(batch));
-  kernel<<<grid, kDepositThreads, shared, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(pos), static_cast<const T*>(rows),
-      static_cast<const int64_t*>(perm), static_cast<const int64_t*>(offsets),
-      static_cast<T*>(out), num_particles, num_components, nx, ny, nt, rows_per_tile,
-      num_tiles, per_run, components_per_pass, ny_per_pass, make_orders(orders, num_orders));
-  return static_cast<int>(cudaGetLastError());
+  const OrderSet set = make_orders(orders, num_orders);
+  const T* p = static_cast<const T*>(sorted_pos);
+  const T* r = static_cast<const T*>(rows);
+  const int64_t* pe = static_cast<const int64_t*>(perm);
+  const int64_t* off = static_cast<const int64_t*>(offsets);
+  T* o = static_cast<T*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      order_kind(orders, num_orders) == cic::kValueOrders
+          ? deposit_tiled_launch<T, cic::kValueOrders>(
+                p, r, pe, off, o, batch, num_particles, num_components, nx, ny, nt,
+                rows_per_tile, num_tiles, per_run, group, min_window_run, set, s)
+          : deposit_tiled_launch<T, cic::kGenericOrders>(
+                p, r, pe, off, o, batch, num_particles, num_components, nx, ny, nt,
+                rows_per_tile, num_tiles, per_run, group, min_window_run, set, s));
 }
 
 template <typename T>
@@ -907,24 +1142,28 @@ int tile_plan(const void* pos, void* counts, int64_t counts_size, void* perm, vo
 // synchronising and returns cudaGetLastError() (0 on success).
 extern "C" {
 
-int cic_deposit_tiled_f32(const void* pos, const void* rows, const void* perm,
+int cic_device_limits(int device, int* out) { return cic::limits_of_device(device, out); }
+
+int cic_deposit_tiled_f32(const void* sorted_pos, const void* rows, const void* perm,
                           const void* offsets, void* out, int64_t batch,
                           int64_t num_particles, int num_components, int nx, int ny, int nt,
-                          int rows_per_tile, int num_tiles, int64_t per_run,
-                          const int* orders, int num_orders, void* stream) {
-  return deposit_tiled<float>(pos, rows, perm, offsets, out, batch, num_particles,
-                              num_components, nx, ny, nt, rows_per_tile, num_tiles, per_run,
-                              orders, num_orders, stream);
+                          int rows_per_tile, int num_tiles, int64_t per_run, int group,
+                          int64_t min_window_run, const int* orders, int num_orders,
+                          void* stream) {
+  return deposit_tiled<float>(sorted_pos, rows, perm, offsets, out, batch, num_particles,
+                          num_components, nx, ny, nt, rows_per_tile, num_tiles, per_run, group,
+                          min_window_run, orders, num_orders, stream);
 }
 
-int cic_deposit_tiled_f64(const void* pos, const void* rows, const void* perm,
+int cic_deposit_tiled_f64(const void* sorted_pos, const void* rows, const void* perm,
                           const void* offsets, void* out, int64_t batch,
                           int64_t num_particles, int num_components, int nx, int ny, int nt,
-                          int rows_per_tile, int num_tiles, int64_t per_run,
-                          const int* orders, int num_orders, void* stream) {
-  return deposit_tiled<double>(pos, rows, perm, offsets, out, batch, num_particles,
-                               num_components, nx, ny, nt, rows_per_tile, num_tiles, per_run,
-                               orders, num_orders, stream);
+                          int rows_per_tile, int num_tiles, int64_t per_run, int group,
+                          int64_t min_window_run, const int* orders, int num_orders,
+                          void* stream) {
+  return deposit_tiled<double>(sorted_pos, rows, perm, offsets, out, batch, num_particles,
+                          num_components, nx, ny, nt, rows_per_tile, num_tiles, per_run, group,
+                          min_window_run, orders, num_orders, stream);
 }
 
 int cic_gather_tiled_f32(const void* grids, const void* sorted_pos, const void* rank,

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -57,6 +57,74 @@ def orders_argument(orders: tuple[tuple[int, int, int], ...]) -> tuple[ctypes.c_
     once."""
     flat = (ctypes.c_int * (3 * len(orders)))(*(v for order in orders for v in order))
     return ctypes.cast(flat, ctypes.c_void_p), len(orders)
+
+
+# ---------------------------------------------------------------------------
+# Launch geometry of the privatised deposits (csrc/cic_common.cuh)
+# ---------------------------------------------------------------------------
+
+#: Threads of a deposit block (``kDepositThreads`` in cic_common.cuh).
+DEPOSIT_THREADS = 512
+#: Threads an SM runs at most (H100).
+_SM_THREADS = 2048
+#: Particles one privatised copy (untiled) or one chunk (tiled) deposits at
+#: most: a float window of the value order set holds int32 fixed point
+#: scaled by the copy's sum of |rows| (``prepare_window`` in
+#: cic_common.cuh), so this bounds a term's rounding by 2^-17 of the
+#: largest row.
+MAX_WINDOW_PARTICLES = 16384
+#: Shared memory the card reserves per block beside what a kernel asks for,
+#: plus the deposit kernels' static shared memory.
+_BLOCK_RESERVE = 1024 + 64
+
+
+class DeviceLimits(NamedTuple):
+    """What a deposit's launch is sized from, read once per device."""
+
+    sms: int
+    #: Dynamic shared memory a block may take (the opt-in limit less 1 KB).
+    budget: int
+    #: Shared memory of one SM.
+    sm_shared: int
+
+
+_LIMITS: dict[int, DeviceLimits] = {}
+
+
+def device_limits(library, device: torch.device) -> DeviceLimits:
+    """The limits of the CUDA ``device``, from ``library``'s
+    ``cic_device_limits``, read once per device."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    limits = _LIMITS.get(index)
+    if limits is None:
+        values = (ctypes.c_int * 3)()
+        library.call("cic_device_limits", index, values)
+        limits = _LIMITS[index] = DeviceLimits(*values)
+    return limits
+
+
+def components_per_block(values: int, itemsize: int, components: int, budget: int) -> int:
+    """How many of ``components`` windows of ``values`` values each one
+    deposit block holds in ``budget`` bytes of shared memory (at most all
+    of them); 0 where not even one fits, and the deposit takes global
+    atomics instead."""
+    return min(components, budget // (values * itemsize))
+
+
+def resident_blocks(shared: int, limits: DeviceLimits) -> int:
+    """Deposit blocks of ``shared`` bytes that the card runs at once."""
+    per_sm = min(_SM_THREADS // DEPOSIT_THREADS, limits.sm_shared // (shared + _BLOCK_RESERVE))
+    return limits.sms * max(1, per_sm)
+
+
+def window_blocks(particles: int, limits: DeviceLimits, shared: int) -> int:
+    """How many deposit blocks of ``shared`` bytes share ``particles``
+    particles (summed over instances and component groups): as many as the
+    card runs at once, or, where that leaves a block more than
+    :data:`MAX_WINDOW_PARTICLES`, whole waves of them."""
+    resident = resident_blocks(shared, limits)
+    needed = -(-particles // MAX_WINDOW_PARTICLES)
+    return -(-needed // resident) * resident
 
 
 def _check_device(*tensors: torch.Tensor) -> str:

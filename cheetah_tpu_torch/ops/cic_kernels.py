@@ -5,6 +5,9 @@ x-tiled pair, and the autograd closure (counterpart of
 
 The untiled kernels are in ``cheetah_tpu_torch/csrc/cic.cu``; the note there
 says which TPU kernel each one replaces and what bounds it on the card. The
+deposit privatises the grid in shared memory where a component fits a
+block (:func:`untiled_deposit_geometry`), else adds to it with global
+atomics. The
 source is compiled with ``nvcc`` for ``sm_90a`` into a shared library with a
 plain C interface at first use, into ``cheetah_tpu_torch/build/``, and loaded
 with ``ctypes``.
@@ -44,11 +47,13 @@ and double backward reuses it.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
-from cheetah_tpu_torch.ops import cic_tiled
+from cheetah_tpu_torch.ops import cic_common, cic_tiled
 from cheetah_tpu_torch.ops.cic_common import (
     VALUE,
     Orders,
@@ -62,8 +67,19 @@ from cheetah_tpu_torch.ops.cic_common import (
 from cheetah_tpu_torch.ops.nvcc import CudaLibrary
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-_SIGNATURE = [_P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I32, _P, _I32, _P]
-LIBRARY = CudaLibrary("cic.cu", {"cic_deposit_multi": _SIGNATURE, "cic_gather_multi": _SIGNATURE})
+LIBRARY = CudaLibrary(
+    "cic.cu",
+    {
+        "cic_deposit_multi": [_P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I32, _I32, _I32,
+                              _P, _I32, _P],
+        "cic_gather_multi": [_P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I32, _P, _I32, _P],
+    },
+    untyped={"cic_device_limits": [_I32, _P]},
+)
+
+#: Particles a copy of the privatised deposit takes at least: fewer copies
+#: of a grid for few particles (one copy writes the output directly).
+MIN_COPY_PARTICLES = 4096
 
 
 # ---------------------------------------------------------------------------
@@ -116,26 +132,84 @@ def uses_tiled(histogram_shape) -> bool:
     return not fits_untiled(histogram_shape) and cic_tiled.tiled_bounds_ok(histogram_shape)
 
 
+class UntiledDepositGeometry(NamedTuple):
+    """The privatised untiled deposit's launch (``deposit_private_kernel``):
+    ``group`` components a block, ``copies`` copies of them per instance
+    and group, each block taking ``shared`` bytes of shared memory."""
+
+    group: int
+    copies: int
+    shared: int
+
+
+@functools.lru_cache(maxsize=256)
+def untiled_deposit_geometry(
+    batch: int, components: int, num_particles: int, cells: int, itemsize: int,
+    limits: cic_common.DeviceLimits,
+) -> UntiledDepositGeometry | None:
+    """The privatised deposit's launch for a call, or ``None`` where not
+    one grid component fits a block's shared memory (64^3 in float32 is 1
+    MB) or the (group, instance) pairs pass the grid's y dimension: then
+    ``deposit_multi_kernel`` adds to the zeroed grid with global atomics.
+    As many copies as fill the card with resident blocks
+    (:func:`~cheetah_tpu_torch.ops.cic_common.window_blocks`: whole waves
+    of them, so that no copy takes more than
+    :data:`~cheetah_tpu_torch.ops.cic_common.MAX_WINDOW_PARTICLES`), and at
+    most one per :data:`MIN_COPY_PARTICLES` particles."""
+    group = cic_common.components_per_block(cells, itemsize, components, limits.budget)
+    if group == 0:
+        return None
+    groups = -(-components // group)
+    if groups * batch > 65535:
+        return None
+    shared = group * cells * itemsize
+    blocks = cic_common.window_blocks(batch * groups * num_particles, limits, shared)
+    copies = max(
+        1,
+        min(blocks // (groups * batch), num_particles // MIN_COPY_PARTICLES),
+        -(-num_particles // cic_common.MAX_WINDOW_PARTICLES),
+    )
+    return UntiledDepositGeometry(group, copies, shared)
+
+
 def _deposit_untiled(normalized, rows, histogram_shape, orders) -> torch.Tensor:
     """The untiled deposit on arguments :func:`check_deposit_args` passed:
-    ``deposit_multi_kernel`` on CUDA tensors (atomic adds, so the sum order,
-    and with it the last bits, change from run to run),
-    :func:`deposit_multi_3d_reference` on CPU tensors."""
+    on CUDA tensors ``deposit_private_kernel`` where
+    :func:`untiled_deposit_geometry` finds a launch (its copies summed by
+    ``deposit_reduce_kernel``), else ``deposit_multi_kernel``; shared- or
+    global-memory atomics, so the sum order, and with it the last bits,
+    change from run to run. :func:`deposit_multi_3d_reference` on CPU
+    tensors."""
     if normalized.device.type == "cpu":
         return deposit_multi_3d_reference(normalized, rows, histogram_shape, orders)
 
     batch, _, num_components, num_particles = rows.shape
     normalized = normalized.contiguous()
     rows = rows.contiguous()
-    out = torch.zeros(
-        (batch, num_components, *histogram_shape), dtype=rows.dtype, device=rows.device
-    )
+    shape = (batch, num_components, *histogram_shape)
     if batch * num_particles * num_components == 0:
-        return out
+        return torch.zeros(shape, dtype=rows.dtype, device=rows.device)
+    cells = math.prod(histogram_shape)
+    geometry = untiled_deposit_geometry(
+        batch, num_components, num_particles, cells, rows.element_size(),
+        cic_common.device_limits(LIBRARY, rows.device),
+    )
+    scratch = None
+    if geometry is None:
+        out = torch.zeros(shape, dtype=rows.dtype, device=rows.device)
+        group, copies = 0, 1
+    else:
+        out = torch.empty(shape, dtype=rows.dtype, device=rows.device)
+        group, copies, _ = geometry
+        if copies > 1:
+            scratch = torch.empty(batch * num_components * copies * cells, dtype=rows.dtype,
+                                  device=rows.device)
     LIBRARY.launch(
         "cic_deposit_multi", rows.dtype, rows.device,
         normalized.data_ptr(), rows.data_ptr(), out.data_ptr(),
-        batch, num_particles, num_components, *histogram_shape, *orders_argument(orders),
+        0 if scratch is None else scratch.data_ptr(),
+        batch, num_particles, num_components, *histogram_shape, group, copies,
+        *orders_argument(orders),
     )
     deposit_multi_3d.launches += 1
     return out

@@ -42,8 +42,14 @@ particles at 128^3; PERF.md):
   order, coalesced, and a second kernel moves them to the original indices
   through ``rank``: writing them there directly, a partial sector per
   value, cost more than the gather itself. 0.053 ms for the kernels.
-- The deposit takes the same plan; shared-memory atomics on a beam's
-  crowded cells bound it.
+- The deposit reads the plan's sorted positions, contiguously, in chunks
+  of about equal work, one block each (:func:`tiled_deposit_geometry` sizes
+  them): a tile's segment of a chunk is added into the tile's window in
+  shared memory (int32 fixed point for the value order set, since Hopper
+  has no shared-memory float add) and the window into the grid by one bulk
+  reduction, or, for a sparse tile, straight to the grid. Shared-memory
+  atomics and the windows' zeroing and flush bound it (0.043 ms for the
+  kernel given its plan; 0.129 ms for the first port's).
 - One plan per autograd node: :class:`~cheetah_tpu_torch.ops.cic_kernels.GatherMulti`
   and :class:`~cheetah_tpu_torch.ops.cic_kernels.DepositMulti` make the plan
   of their positions once, in forward, and hand it (``plan=``) to every
@@ -61,6 +67,7 @@ raise. Each wrapper counts its kernel launches in ``launches``;
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -73,11 +80,12 @@ LIBRARY = CudaLibrary(
     "cic_tiled.cu",
     {
         "cic_deposit_tiled": [_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I32,
-                              _I32, _I32, _I64, _P, _I32, _P],
+                              _I32, _I32, _I64, _I32, _I64, _P, _I32, _P],
         "cic_gather_tiled": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I32,
                              _I32, _I32, _I64, _P, _I32, _P],
         "cic_tile_plan": [_P, _P, _I64, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _P],
     },
+    untyped={"cic_device_limits": [_I32, _P]},
 )
 
 # Window bounds of the JAX package's tiled kernels (pallas_cic_tiled.py
@@ -88,16 +96,22 @@ _MAX_WINDOW_CELLS = 262144
 _MAX_NT = 512
 
 #: One y-row of a tile's window (``R + 1`` x-rows by ``nt`` cells, float64)
-#: fits the 48 KB of shared memory every block has, so that the deposit
-#: kernel can always cut its window into y-slabs (``(1024, 1, 512)``, where
-#: the JAX package's R is 255, would not fit otherwise).
+#: fits 48 KB, so that a grid like ``(1024, 1, 512)``, where the JAX
+#: package's R is 255, keeps a window that fits a deposit block's shared
+#: memory (48 KB, not 2 MB).
 _WINDOW_ROW_BYTES = 48 * 1024
 
-#: Sorted particles a deposit block takes: a block zeroes and flushes its
-#: whole window once per pass, so a run is long next to the window. A gather
-#: block has no window, so its runs are short and spread over more blocks.
-DEPOSIT_PER_RUN = 8192
+#: Sorted particles a gather block takes: a gather block has no window, so
+#: its runs are short and spread over many blocks. A deposit block's chunk
+#: is sized by :func:`tiled_deposit_geometry`.
 GATHER_PER_RUN = 2048
+#: The fewest sorted particles a deposit block takes on average.
+MIN_DEPOSIT_RUN = 1024
+#: A tile's segment of a deposit chunk shorter than its window's cells over
+#: this adds its corners to the global grid directly: zeroing and scanning
+#: the window (two passes over its cells) would cost more than its
+#: particles' 8 global atomics each.
+WINDOW_CELLS_PER_RUN_PARTICLE = 16
 
 #: Particles one warp of the plan's kernels takes (``kPlanSlice`` in
 #: cic_tiled.cu): the plan's count matrix has at most ``ceil(N / 128)``
@@ -242,6 +256,44 @@ def _check_plan(plan: TilePlan, normalized: torch.Tensor, histogram_shape) -> Ti
     return plan
 
 
+class TiledDepositGeometry(NamedTuple):
+    """The x-tiled deposit's launch (``deposit_tiled_kernel``): ``group``
+    components a block; ``ceil(N / per_run)`` chunks of the sorted
+    particles, one a block (the kernel weighs their bounds by cost); a
+    window only for a tile's segment of ``min_window_run`` particles or
+    more; ``shared`` bytes a block (0: no window fits, every corner is added
+    to the global grid)."""
+
+    group: int
+    per_run: int
+    min_window_run: int
+    shared: int
+
+
+@functools.lru_cache(maxsize=256)
+def tiled_deposit_geometry(
+    batch: int, components: int, num_particles: int, window_cells: int, itemsize: int,
+    limits: cic_common.DeviceLimits,
+) -> TiledDepositGeometry:
+    """The x-tiled deposit's launch for a call. A block holds the windows
+    of ``window_cells`` cells of as many components as fit its shared
+    memory; where not one fits, the kernel runs without windows, all
+    components a block. There are as many chunks as fill the card with
+    resident blocks (:func:`~cheetah_tpu_torch.ops.cic_common.window_blocks`;
+    at least :data:`MIN_DEPOSIT_RUN` particles a chunk on average)."""
+    group = cic_common.components_per_block(window_cells, itemsize, components, limits.budget)
+    shared = group * window_cells * itemsize
+    group = group or components
+    groups = -(-components // group)
+    blocks = cic_common.window_blocks(batch * groups * num_particles, limits, shared)
+    per_run = min(
+        max(MIN_DEPOSIT_RUN, -(-batch * groups * num_particles // blocks)),
+        cic_common.MAX_WINDOW_PARTICLES,
+    )
+    min_window_run = -(-window_cells // WINDOW_CELLS_PER_RUN_PARTICLE)
+    return TiledDepositGeometry(group, per_run, min_window_run, shared)
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions: the CPU path and the kernels' yardstick.
 # ---------------------------------------------------------------------------
@@ -334,8 +386,9 @@ def deposit_multi_tiled_3d(
     """x-tiled multi-order CIC deposit, with the contract of
     :func:`cheetah_tpu_torch.ops.cic_kernels.deposit_multi_3d`.
 
-    CUDA tensors launch ``deposit_tiled_kernel`` (atomic adds, so the last
-    bits change from run to run); CPU tensors run
+    CUDA tensors launch ``deposit_tiled_kernel`` on the plan's sorted
+    positions, sized by :func:`tiled_deposit_geometry` (atomic adds, so the
+    last bits change from run to run); CPU tensors run
     :func:`deposit_multi_tiled_3d_reference`. ``plan``, made by
     :func:`plan_tiles` from ``normalized`` on this grid, saves making it
     here.
@@ -359,11 +412,17 @@ def deposit_multi_tiled_3d(
     normalized = normalized.contiguous()
     rows = rows.contiguous()
     plan = _check_plan(plan, normalized, histogram_shape)
+    _, ny, nt = histogram_shape
+    geometry = tiled_deposit_geometry(
+        batch, num_components, num_particles, (plan.rows_per_tile + 1) * ny * nt,
+        rows.element_size(), cic_common.device_limits(LIBRARY, rows.device),
+    )
     LIBRARY.launch(
         "cic_deposit_tiled", rows.dtype, rows.device,
-        normalized.data_ptr(), rows.data_ptr(), plan.perm.data_ptr(),
+        plan.sorted_positions.data_ptr(), rows.data_ptr(), plan.perm.data_ptr(),
         plan.offsets.data_ptr(), out.data_ptr(), batch, num_particles, num_components,
-        *histogram_shape, plan.rows_per_tile, plan.num_tiles, DEPOSIT_PER_RUN,
+        *histogram_shape, plan.rows_per_tile, plan.num_tiles, geometry.per_run,
+        geometry.group, geometry.min_window_run,
         *cic_common.orders_argument(orders),
     )
     deposit_multi_tiled_3d.launches += 1

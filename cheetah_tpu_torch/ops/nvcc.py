@@ -51,11 +51,16 @@ class CudaLibrary:
     :param functions: Entry point name -> ctypes argument types. Each entry
         point exists as ``<name>_f32`` and ``<name>_f64`` and returns
         ``cudaGetLastError()`` as an int.
+    :param untyped: Entry points of one name, called with :meth:`call`:
+        name -> ctypes argument types; each returns a CUDA error code.
     """
 
-    def __init__(self, source: str, functions: dict[str, list]) -> None:
+    def __init__(
+        self, source: str, functions: dict[str, list], untyped: dict[str, list] | None = None
+    ) -> None:
         self.source = CSRC_DIR / source
         self.functions = functions
+        self.untyped = untyped or {}
         self.handle: ctypes.CDLL | None = None
         self._lock = threading.Lock()
         self._entries: dict = {}
@@ -81,6 +86,10 @@ class CudaLibrary:
                         function = getattr(library, f"{name}_{suffix}")
                         function.argtypes = argtypes
                         function.restype = ctypes.c_int
+                for name, argtypes in self.untyped.items():
+                    function = getattr(library, name)
+                    function.argtypes = argtypes
+                    function.restype = ctypes.c_int
                 self.handle = library
             return self.handle
 
@@ -107,6 +116,14 @@ class CudaLibrary:
                 status = function(*args, torch._C._cuda_getCurrentRawStream(index))
         if status != 0:
             raise RuntimeError(f"{name} launch failed with CUDA error {status}.")
+
+
+    def call(self, name: str, *args) -> None:
+        """Call the untyped entry point ``name`` and raise if it reports a
+        CUDA error."""
+        status = getattr(self.load(), name)(*args)
+        if status != 0:
+            raise RuntimeError(f"{name} failed with CUDA error {status}.")
 
 
 def build_all(libraries: list[CudaLibrary], verbose: bool = False) -> dict[str, str]:

@@ -8,8 +8,10 @@ Run from the root of the repository with no arguments::
 It builds the CUDA kernels from ``cheetah_tpu_torch/csrc`` with nvcc (one
 process per source, all at once, reporting ptxas's registers per kernel),
 holds each kernel against its plain PyTorch version on the card (and the
-tile plan's counting sort against ``torch.sort``), times the gathers at the
-order sets the paths use, drives the paths of the port through the
+tile plan's counting sort against ``torch.sort``), the deposits on every
+route their wrappers pick and on a crowded beam, times the gathers at the
+order sets the paths use and the deposits at C = 1 and 3, drives the paths
+of the port through the
 public entry points (the ARES EA env step and the 1M-particle space-charge
 segment, forward and with their gradients, the latter on the 32^3 grid of
 the untiled kernels and the 128^3 grid of the x-tiled ones), checks them
@@ -56,7 +58,11 @@ PATH_ORDER_SETS = [("value_c3", ((0, 0, 0),), 3), ("raised_c3", RAISED, 3),
 # The deposit adds ~N * 8 / cells (~250 at 32^3) terms per cell with
 # atomics in an order that changes from run to run, as does index_add_ in
 # the plain version; sqrt(250) * eps * max|term| stays well below 1e-5 of
-# max|output|, and K * eps * max|term| (the worst case) near it.
+# max|output|, and K * eps * max|term| (the worst case) near it. At the
+# value order set in float32 the privatised deposits add in int32 fixed
+# point, each term rounded by at most 2^-17 of the largest row (16384
+# particles a copy, csrc/cic_common.cuh); random roundings over K terms
+# stay below 1e-4 of max|output| even where signed rows cancel in a cell.
 GATHER_TOLERANCE = 1e-5
 DEPOSIT_TOLERANCE = 1e-4
 # The card (float32) against the port on the CPU (float64): sigma_x of the
@@ -159,7 +165,8 @@ def relative_error(actual: torch.Tensor, expected: torch.Tensor) -> tuple[float,
 KERNEL_FAMILIES = {
     "gather": ("gather_multi_kernel", "gather_staged_kernel", "gather_tiled_kernel",
                "gather_tiled_staged_kernel", "unsort_kernel"),
-    "deposit": ("deposit_multi_kernel", "deposit_tiled_kernel"),
+    "deposit": ("deposit_multi_kernel", "deposit_private_kernel", "deposit_reduce_kernel",
+                "deposit_tiled_kernel"),
     "plan": ("plan_count_kernel", "plan_scan_kernel", "plan_scatter_kernel"),
 }
 
@@ -331,6 +338,67 @@ def _beam_positions(generator, shape, offset, dtype):
     return n / 2 + offset + gauss * n / 6
 
 
+def _crowded_positions(generator, batch, shape, dtype, count=NUM_PARTICLES):
+    """Bin-space positions of every particle inside the 2 x 2 x 2 cells at
+    the grid's centre: each cell gets ~N / 8 particles' atomics, the worst
+    case for a privatised deposit's shared-memory atomics."""
+    n = torch.tensor(shape, dtype=dtype, device="cuda")
+    jitter = torch.rand((batch, count, 3), generator=generator, dtype=dtype, device="cuda")
+    return torch.floor(n / 2) - 1 + 2 * jitter
+
+
+def _deposit_route(cic_kernels, cic_tiled, shape, dtype, batch, components) -> str:
+    """Which kernel a deposit of this call launches, as the wrappers choose
+    it: the privatised untiled kernel with its copies, the global-atomic
+    untiled kernel, or the x-tiled kernel with its chunk length, with or
+    without windows."""
+    from cheetah_tpu_torch.ops import cic_common
+
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    limits = cic_common.device_limits(cic_kernels.LIBRARY, torch.device("cuda"))
+    if cic_kernels.uses_tiled(shape):
+        window = (cic_tiled.rows_per_tile(shape) + 1) * shape[1] * shape[2]
+        g = cic_tiled.tiled_deposit_geometry(batch, components, NUM_PARTICLES, window, itemsize,
+                                             limits)
+        windows = "windows" if g.shared else "no windows"
+        return f"tiled group={g.group} per_run={g.per_run} {windows}"
+    g = cic_kernels.untiled_deposit_geometry(batch, components, NUM_PARTICLES,
+                                             shape[0] * shape[1] * shape[2], itemsize, limits)
+    if g is None:
+        return "untiled global atomics"
+    return f"untiled private group={g.group} copies={g.copies}"
+
+
+def _crowded_deposit_errors(cic_kernels, cic_tiled, generator) -> list:
+    """The deposits on crowded inputs (:func:`_crowded_positions`), on each
+    privatised route, at the value order (C = 1 and 3) and all 8 orders:
+    the worst relative error against the plain version per case."""
+    cases = [((32, 32, 32), torch.float32), ((32, 32, 32), torch.float64),
+             ((64, 64, 64), torch.float32), ((128, 128, 128), torch.float32),
+             ((128, 128, 128), torch.float64)]
+    results = []
+    for shape, dtype in cases:
+        normalized = _crowded_positions(generator, 1, shape, dtype)
+        for orders, components in ((cic_kernels.VALUE, 1), (cic_kernels.VALUE, 3),
+                                   (ALL_ORDERS, 1)):
+            rows = torch.randn((1, len(orders), components, NUM_PARTICLES), generator=generator,
+                               dtype=dtype, device="cuda")
+            got = cic_kernels.deposit_multi_3d(normalized, rows, shape, orders)
+            if cic_kernels.uses_tiled(shape):
+                want = cic_tiled.deposit_multi_tiled_3d_reference(normalized, rows, shape, orders)
+            else:
+                want = cic_kernels.deposit_multi_3d_reference(normalized, rows, shape, orders)
+            error = relative_error(got, want)[1]
+            results.append({
+                "grid": list(shape), "dtype": str(dtype).removeprefix("torch."),
+                "orders": len(orders), "components": components, "rel_err": error,
+                "route": _deposit_route(cic_kernels, cic_tiled, shape, dtype, 1, components),
+            })
+            check(error <= DEPOSIT_TOLERANCE, f"crowded deposit {results[-1]}: error {error}")
+        del normalized, rows, got, want
+    return results
+
+
 def _unaligned(tensor: torch.Tensor) -> torch.Tensor:
     """A contiguous copy of ``tensor`` whose data starts one element past an
     aligned address. A bulk copy needs 16-byte alignment, so the gathers
@@ -382,7 +450,7 @@ def phase_kernels(cic_kernels) -> dict:
     for batch, side, dtype in [
         (1, 32, torch.float32), (4, 32, torch.float32),
         (1, 64, torch.float32), (4, 64, torch.float32),
-        (1, 32, torch.float64),
+        (1, 32, torch.float64), (4, 32, torch.float64), (1, 64, torch.float64),
     ]:
         shape = (side, side, side)
         normalized = _uniform_positions(generator, batch, shape, dtype)
@@ -427,6 +495,7 @@ def phase_kernels(cic_kernels) -> dict:
             batch=batch, grid=list(shape), particles=NUM_PARTICLES, orders=orders,
             dtype=str(dtype).removeprefix("torch."),
             deposit_rel_err=deposit_error, deposit_ms=ms_deposit,
+            deposit_route=_deposit_route(cic_kernels, cic_kernels.cic_tiled, shape, dtype, batch, 1),
             deposit_bound_ms=bound(deposit_bytes, batch * NUM_PARTICLES * 8 * 5 * orders)[0],
             gather_components=3, gather_rel_err=gather_error, gather_ms=ms_gather,
             gather_path_sets_rel_err=path_sets_error,
@@ -469,6 +538,9 @@ def phase_kernels(cic_kernels) -> dict:
     deposit_bound = bound(
         NUM_PARTICLES * (3 + 1) * 4 + cells * 4, NUM_PARTICLES * 8 * 5
     )
+    deposit_c3 = _deposit_c3(cic_kernels.deposit_multi_3d, cic_kernels.deposit_multi_3d_reference,
+                             generator, positions, shape)
+    deposit_c3["route"] = _deposit_route(cic_kernels, cic_kernels.cic_tiled, shape, f32, 1, 3)
 
     nodes = _beam_positions(generator, shape, 0.0, f32)
     grids = torch.randn((1, 3, *shape), generator=generator, dtype=f32, device="cuda")
@@ -509,7 +581,9 @@ def phase_kernels(cic_kernels) -> dict:
         "kernel_main_shape",
         grid=list(shape), particles=NUM_PARTICLES,
         deposit={"ms": deposit_ms, "eager_ms": deposit_eager_ms, "plain_ms": deposit_plain_ms,
-                 "bound_ms": deposit_bound[0], "max_abs_err": deposit_abs, "rel_err": deposit_rel},
+                 "bound_ms": deposit_bound[0], "max_abs_err": deposit_abs, "rel_err": deposit_rel,
+                 "route": _deposit_route(cic_kernels, cic_kernels.cic_tiled, shape, f32, 1, 1)},
+        deposit_c3=deposit_c3,
         gather={"ms": gather_ms, "eager_ms": gather_eager_ms, "plain_ms": gather_plain_ms,
                 "bound_ms": gather_bound[0], "library_ms": gather_library_ms,
                 "library_eager_ms": gather_library_eager_ms, "grid_sample_rel_diff": library_rel,
@@ -520,13 +594,36 @@ def phase_kernels(cic_kernels) -> dict:
         "deposit": dict(
             ms=deposit_ms, eager_ms=deposit_eager_ms, plain_ms=deposit_plain_ms,
             bound_ms=deposit_bound[0], bound_by=deposit_bound[1], library_ms=None,
-            max_abs_err=deposit_abs,
+            max_abs_err=deposit_abs, c3_ms=deposit_c3["ms"], c3_bound_ms=deposit_c3["bound_ms"],
         ),
         "gather": dict(
             ms=gather_ms, eager_ms=gather_eager_ms, plain_ms=gather_plain_ms,
             bound_ms=gather_bound[0], bound_by=gather_bound[1], library_ms=gather_library_ms,
             max_abs_err=gather_abs,
         ),
+    }
+
+
+def _deposit_c3(deposit, plain, generator, positions, shape, **plan) -> dict:
+    """The deposit at the backward shape (the value order, C = 3: the
+    transpose of the force gather) on the main path's positions, against
+    its plain version, timed, with its bound: positions and rows read once,
+    the three grids written once."""
+    cells = shape[0] * shape[1] * shape[2]
+    value = ((0, 0, 0),)
+    forces = torch.randn((1, 1, 3, NUM_PARTICLES), generator=generator, dtype=positions.dtype,
+                         device="cuda")
+    got = deposit(positions, forces, shape, value, **plan)
+    absolute, rel = relative_error(got, plain(positions, forces, shape, value))
+    check(rel <= DEPOSIT_TOLERANCE, f"{shape}: deposit error {rel} at C=3")
+    return {
+        "ms": graph_ms(lambda: deposit(positions, forces, shape, value, **plan)),
+        "eager_ms": time_ms(lambda: deposit(positions, forces, shape, value, **plan),
+                            per_event=10),
+        "plain_ms": time_ms(lambda: plain(positions, forces, shape, value), per_event=10),
+        "bound_ms": bound(NUM_PARTICLES * (3 + 3) * 4 + 3 * cells * 4,
+                          NUM_PARTICLES * 8 * 5 * 3)[0],
+        "max_abs_err": absolute, "rel_err": rel,
     }
 
 
@@ -707,6 +804,8 @@ def phase_kernels_tiled(cic_kernels, cic_tiled) -> dict:
     for batch, shape, dtype in [
         *itertools.product((1, 4), TILED_SHAPES, (torch.float32, torch.float64)),
         (1, (1024, 1, 512), torch.float64),
+        # A window past a block's shared memory (2 MB): no windows at all.
+        (1, (8, 256, 512), torch.float64),
     ]:
         check(cic_kernels.uses_tiled(shape), f"{shape} is not dispatched to the tiled kernels")
         normalized = _tiled_check_positions(generator, batch, shape, dtype)
@@ -742,6 +841,7 @@ def phase_kernels_tiled(cic_kernels, cic_tiled) -> dict:
             batch=batch, grid=list(shape), particles=NUM_PARTICLES, orders=len(ALL_ORDERS),
             dtype=str(dtype).removeprefix("torch."),
             rows_per_tile=cic_tiled.rows_per_tile(shape), plan_equals_tile_plan=plan_equal,
+            deposit_route=_deposit_route(cic_kernels, cic_tiled, shape, dtype, batch, 1),
             deposit_rel_err=deposit_error, deposit_rel_diff_untiled=deposit_untiled,
             gather_components=3, gather_rel_err=gather_error,
             gather_rel_diff_untiled=gather_untiled,
@@ -794,9 +894,27 @@ def phase_kernels_tiled(cic_kernels, cic_tiled) -> dict:
         ),
         "plan_ms": graph_ms(lambda: cic_tiled.plan_tiles(positions, shape)),
         "max_abs_err": deposit_abs, "rel_err": deposit_rel,
+        "route": _deposit_route(cic_kernels, cic_tiled, shape, f32, 1, 1),
     }
+    positions_plan = cic_tiled.plan_tiles(positions, shape)
+    deposit["kernel_ms"] = graph_ms(
+        lambda: cic_tiled.deposit_multi_tiled_3d(positions, charges, shape, value,
+                                                 plan=positions_plan)
+    )
     # Inputs read once (positions, charges), the grid written once.
     deposit_bound = bound(NUM_PARTICLES * (3 + 1) * 4 + cells * 4, NUM_PARTICLES * 8 * 5)
+    deposit_c3 = _deposit_c3(cic_tiled.deposit_multi_tiled_3d,
+                             cic_tiled.deposit_multi_tiled_3d_reference, generator, positions,
+                             shape)
+    deposit_c3["kernel_ms"] = _deposit_c3(
+        cic_tiled.deposit_multi_tiled_3d, cic_tiled.deposit_multi_tiled_3d_reference, generator,
+        positions, shape, plan=positions_plan,
+    )["ms"]
+    deposit_c3["untiled_ms"] = _deposit_c3(
+        cic_kernels._deposit_untiled, cic_tiled.deposit_multi_tiled_3d_reference, generator,
+        positions, shape,
+    )["ms"]
+    deposit_c3["route"] = _deposit_route(cic_kernels, cic_tiled, shape, f32, 1, 3)
 
     nodes = _beam_positions(generator, shape, 0.0, f32)
     grids = torch.randn((1, 3, *shape), generator=generator, dtype=f32, device="cuda")
@@ -859,6 +977,7 @@ def phase_kernels_tiled(cic_kernels, cic_tiled) -> dict:
         "kernel_tiled_main_shape",
         grid=list(shape), particles=NUM_PARTICLES, rows_per_tile=cic_tiled.rows_per_tile(shape),
         deposit={**deposit, "bound_ms": deposit_bound[0]},
+        deposit_c3=deposit_c3,
         gather={**gather, "bound_ms": gather_bound[0]},
         plan={"ms": gather["plan_ms"], "plain_ms": gather["plan_plain_ms"],
               "torch_sort_ms": gather["plan_torch_sort_ms"], "bound_ms": plan_bound[0]},
@@ -874,7 +993,9 @@ def phase_kernels_tiled(cic_kernels, cic_tiled) -> dict:
         "deposit": dict(
             ms=deposit["ms"], eager_ms=deposit["eager_ms"], plain_ms=deposit["plain_ms"],
             bound_ms=deposit_bound[0], bound_by=deposit_bound[1], library_ms=None,
-            max_abs_err=deposit_abs,
+            max_abs_err=deposit_abs, kernel_ms=deposit["kernel_ms"],
+            c3_ms=deposit_c3["ms"], c3_kernel_ms=deposit_c3["kernel_ms"],
+            c3_bound_ms=deposit_c3["bound_ms"],
         ),
         "gather": dict(
             ms=gather["ms"], eager_ms=gather["eager_ms"], plain_ms=gather["plain_ms"],
@@ -1157,6 +1278,9 @@ def main() -> int:
     phase_build([cic_kernels.LIBRARY, cic_tiled.LIBRARY])
     numbers = phase_kernels(cic_kernels)
     tiled_numbers = phase_kernels_tiled(cic_kernels, cic_tiled)
+    emit("deposit_crowded", particles=NUM_PARTICLES, cells=8,
+         cases=_crowded_deposit_errors(cic_kernels, cic_tiled,
+                                       torch.Generator(device="cuda").manual_seed(SEED + 5)))
     phase_gather_order_sets(cic_kernels, cic_tiled)
     phase_autograd_kernels(cic_kernels, wrappers)
     phase_env_step(ctt, wrappers)

@@ -28,6 +28,9 @@ from cheetah_tpu_torch.ops import cic_common, cic_kernels, cic_tiled, nvcc
 from test_torch_cic_tiled import ALL_ORDERS, SHAPES, _positions
 
 RAISED = ((1, 0, 0), (0, 1, 0), (0, 0, 1))
+#: An H100 SXM's SMs, per-block opt-in shared memory less 1 KB, and shared
+#: memory per SM, as ``cic_device_limits`` reports them.
+H100_LIMITS = cic_common.DeviceLimits(132, 232448 - 1024, 233472)
 ORDER_SETS = {"all": ALL_ORDERS, "value": cic_kernels.VALUE, "raised": RAISED}
 
 
@@ -119,7 +122,8 @@ def test_a_plan_must_fit_its_positions_and_grid():
                                     plan=cic_tiled.tile_plan(normalized, SHAPES[0]))
 
 
-_C_TYPES = {"const void*": "p", "void*": "p", "const int*": "p", "int64_t": "i64", "int": "i32"}
+_C_TYPES = {"const void*": "p", "void*": "p", "const int*": "p", "int*": "p", "int64_t": "i64",
+            "int": "i32"}
 _CTYPES = {"c_void_p": "p", "c_long": "i64", "c_int64": "i64", "c_int": "i32", "c_int32": "i32"}
 
 
@@ -136,11 +140,13 @@ def test_ctypes_signatures_match_the_c_entry_points(library):
     }
     assert set(declared) == {
         f"{name}_{suffix}" for name in module.LIBRARY.functions for suffix in ("f32", "f64")
-    }
+    } | set(module.LIBRARY.untyped)
     for name, argtypes in module.LIBRARY.functions.items():
         wanted = [_CTYPES[t.__name__] for t in argtypes]
         for suffix in ("f32", "f64"):
             assert declared[f"{name}_{suffix}"] == wanted, (name, suffix)
+    for name, argtypes in module.LIBRARY.untyped.items():
+        assert declared[name] == [_CTYPES[t.__name__] for t in argtypes], name
 
 
 _CARD_CALLS = {
@@ -174,6 +180,7 @@ def test_card_paths_pass_their_signatures(monkeypatch, wrapper, dtype):
     for module in (cic_kernels, cic_tiled):
         monkeypatch.setattr(module.LIBRARY, "launch", launch.__get__(module.LIBRARY))
     monkeypatch.setattr(cic_common, "_check_device", lambda *tensors: "meta")
+    monkeypatch.setattr(cic_common, "device_limits", lambda library, device: H100_LIMITS)
     batch, num_particles = 2, 1000
     normalized = torch.empty(batch, num_particles, 3, dtype=dtype, device="meta")
     grids = torch.empty(batch, 3, *(SHAPES[0] if "tiled" in wrapper else (8, 8, 8)),
