@@ -18,7 +18,7 @@ from typing import Any
 import torch
 from torch import nn
 
-from cheetah_tpu_torch.particles import Beam, ParticleBeam, Species
+from cheetah_tpu_torch.particles import Beam, ParameterBeam, ParticleBeam, Species
 from cheetah_tpu_torch.utils.device import as_float_tensor, check_module_device
 from cheetah_tpu_torch.utils.names import UniqueNameGenerator
 from cheetah_tpu_torch.utils.names import sanitize_name as _sanitize
@@ -134,15 +134,13 @@ class Element(nn.Module):
         :raises ValueError: if a parameter of the element lies on another
             device than the beam.
         """
-        if not isinstance(incoming, ParticleBeam):
-            raise TypeError(f"Parameter incoming is of invalid type {type(incoming)}")
-        check_module_device(self, incoming.particles.device)
+        check_module_device(self, beam_device(incoming))
         return self._track(incoming)
 
     def forward(self, incoming: Beam) -> Beam:
         return self.track(incoming)
 
-    def _track(self, incoming: ParticleBeam) -> ParticleBeam:
+    def _track(self, incoming: Beam) -> Beam:
         method = self.tracking_method
         if method == "linear":
             return self._track_first_order(incoming)
@@ -151,9 +149,20 @@ class Element(nn.Module):
             f"is not ported to PyTorch yet; it comes with {_LATER_SLICE[method]}."
         )
 
-    def _track_first_order(self, incoming: ParticleBeam) -> ParticleBeam:
-        """Linear tracking: the batched ``(..., N, 7) @ (..., 7, 7)^T`` matmul."""
+    def _track_first_order(self, incoming: Beam) -> Beam:
+        """Linear tracking: the moments' congruence ``mu' = M mu``,
+        ``cov' = M cov M^T`` for a :class:`ParameterBeam`, the batched
+        ``(..., N, 7) @ (..., 7, 7)^T`` matmul for a :class:`ParticleBeam`."""
         tm = self.first_order_transfer_map(incoming.energy, incoming.species)
+        if isinstance(incoming, ParameterBeam):
+            return ParameterBeam(
+                torch.matmul(tm, incoming.mu[..., None]).squeeze(-1),
+                tm @ incoming.cov @ tm.transpose(-1, -2),
+                incoming.energy,
+                total_charge=incoming.total_charge,
+                s=incoming.s + self.length,
+                species=incoming.species,
+            )
         return ParticleBeam(
             torch.matmul(incoming.particles, tm.transpose(-1, -2)),
             incoming.energy,
@@ -184,3 +193,30 @@ class Element(nn.Module):
         return ", ".join(
             f"{feature}={getattr(self, feature)!r}" for feature in self.defining_features
         )
+
+
+class ZeroLengthMixin:
+    """Mixin giving a thin element a constant zero ``length``, in the dtype
+    and on the device of its first parameter."""
+
+    @property
+    def length(self) -> torch.Tensor:
+        return next(self.buffers()).new_zeros(())
+
+
+def identity_transfer_map(energy: torch.Tensor) -> torch.Tensor:
+    """The 7x7 identity, broadcast over the energy's vector dimensions."""
+    eye = torch.eye(7, dtype=energy.dtype, device=energy.device)
+    return eye.expand(*energy.shape, 7, 7)
+
+
+def beam_device(beam: Beam) -> torch.device:
+    """The device of a beam's tensors.
+
+    :raises TypeError: if ``beam`` is neither a particle nor a parameter beam.
+    """
+    if isinstance(beam, ParticleBeam):
+        return beam.particles.device
+    if isinstance(beam, ParameterBeam):
+        return beam.mu.device
+    raise TypeError(f"Parameter incoming is of invalid type {type(beam)}")

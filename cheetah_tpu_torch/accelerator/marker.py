@@ -4,8 +4,8 @@ from __future__ import annotations
 
 import torch
 
-from cheetah_tpu_torch.accelerator.element import Element
-from cheetah_tpu_torch.particles import ParticleBeam
+from cheetah_tpu_torch.accelerator.element import Element, identity_transfer_map
+from cheetah_tpu_torch.particles import Beam
 from cheetah_tpu_torch.particles.species import Species
 
 
@@ -31,10 +31,9 @@ class Marker(Element):
     def first_order_transfer_map(
         self, energy: torch.Tensor, species: Species
     ) -> torch.Tensor:
-        eye = torch.eye(7, dtype=energy.dtype, device=energy.device)
-        return eye.expand(*energy.shape, 7, 7)
+        return identity_transfer_map(energy)
 
-    def _track(self, incoming: ParticleBeam) -> ParticleBeam:
+    def _track(self, incoming: Beam) -> Beam:
         return incoming
 
     @property

@@ -5,17 +5,23 @@ elements. Its ``track`` partitions the lattice into runs of consecutive
 *skippable* elements, composes each run's 7x7 transfer maps (cheap,
 O(run * 7^3)) and applies the fused map to the beam once (O(N * 7^2)).
 Elements are reachable as attributes by name.
+
+``track_moments`` collapses a ``ParticleBeam`` to its moments after the
+last element that must act on particles, and ``track_with_readings``
+collects the readings of the active observers (screens, BPMs) along the
+way, tracking the stretches between them as fused runs.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Iterator, Literal
 
 import torch
 from torch import nn
 
-from cheetah_tpu_torch.accelerator.element import Element
-from cheetah_tpu_torch.particles import ParticleBeam, Species
+from cheetah_tpu_torch.accelerator.element import Element, beam_device
+from cheetah_tpu_torch.particles import Beam, ParticleBeam, Species
+from cheetah_tpu_torch.utils.device import check_module_device
 
 
 class Segment(Element):
@@ -80,14 +86,149 @@ class Segment(Element):
             tm = element.first_order_transfer_map(energy, species) @ tm
         return tm
 
-    def _track(self, incoming: ParticleBeam) -> ParticleBeam:
+    def _track(self, incoming: Beam) -> Beam:
         """Consecutive skippable elements are fused into one composed
         transfer map applied with one matmul; the others track one by one."""
+        if not self.elements:
+            return incoming
         if self.is_skippable:
             return self._track_first_order(incoming)
         for todo in self._plan():
             incoming = todo._track(incoming)
         return incoming
+
+    def track_moments(
+        self,
+        incoming: Beam,
+        second_order: Literal["closure", "particles"] = "closure",
+    ) -> Beam:
+        """Track only the beam's first and second moments.
+
+        Through a linear map ``M`` the moments of a particle distribution
+        are exactly ``mu' = M mu``, ``cov' = M cov M^T``. So a
+        :class:`ParticleBeam` is tracked as particles through every element
+        up to and including the last one that must act on particles (space
+        charge, an active aperture or screen, ...), collapsed there to its
+        weighted mean and covariance (``as_parameter_beam``), and the
+        trailing skippable runs transport the moments alone: O(7^3) per
+        instance instead of O(N * 7^2). For linear stretches the result is
+        :meth:`track`'s sample moments up to float rounding.
+
+        The JAX package's ``second_order="closure"`` also moves moments
+        through ``second_order``-tracked elements by a Gaussian closure;
+        that tracking method is not ported yet, and such an element raises
+        ``NotImplementedError`` here.
+
+        :param second_order: ``"closure"`` (default) or ``"particles"``.
+        :return: A :class:`ParameterBeam` with the tracked moments (a
+            :class:`ParameterBeam` input is simply tracked).
+        """
+        check_module_device(self, beam_device(incoming))
+
+        def moment_transportable(todo: Element) -> bool:
+            if todo.is_skippable:
+                return True
+            if second_order == "closure" and _is_second_order_leaf(todo):
+                raise NotImplementedError(
+                    f"track_moments through the second_order element {todo.name!r} needs "
+                    "the Gaussian closure, which comes with the nonlinear-element slice."
+                )
+            return False
+
+        todos = self._plan()
+        boundary = 0
+        for index, todo in enumerate(todos):
+            if not moment_transportable(todo):
+                boundary = index + 1
+        for todo in todos[:boundary]:
+            incoming = todo._track(incoming)
+        if isinstance(incoming, ParticleBeam):
+            incoming = incoming.as_parameter_beam()
+        for todo in todos[boundary:]:
+            incoming = todo._track(incoming)
+        return incoming
+
+    def track_with_readings(self, incoming: Beam) -> tuple[Beam, dict[str, torch.Tensor]]:
+        """Track a beam and collect the readings of the observers on the
+        way: every active element with an ``observe`` method (Screen, BPM)
+        gives ``readings[element.name]``, read from the beam at its place.
+        The elements between two observers are tracked as one segment, so
+        their skippable runs fuse as in :meth:`track`.
+
+        :return: ``(outgoing_beam, readings)``.
+        """
+        check_module_device(self, beam_device(incoming))
+        readings: dict[str, torch.Tensor] = {}
+        pending: list[Element] = []
+
+        def flush(beam: Beam) -> Beam:
+            if len(pending) == 1:
+                beam = pending[0]._track(beam)
+            elif pending:
+                beam = Segment(list(pending), sanitize_name=False)._track(beam)
+            pending.clear()
+            return beam
+
+        for element in self.elements:
+            # A Superimposed element joins this branch with the
+            # nonlinear-element slice, which ports it.
+            if isinstance(element, Segment):
+                if _contains_active_observer(element):
+                    incoming = flush(incoming)
+                    incoming, sub_readings = element.track_with_readings(incoming)
+                    readings.update(sub_readings)
+                else:
+                    pending.append(element)
+            elif _is_active_observer(element):
+                incoming = flush(incoming)
+                readings[element.name] = element.observe(incoming)
+                incoming = element._track(incoming)
+            else:
+                pending.append(element)
+        return flush(incoming), readings
+
+    def beam_along_segment_generator(
+        self, incoming: Beam, resolution: float | None = None
+    ) -> Iterator[Beam]:
+        """Yield the beam at the entrance and after every element.
+
+        :param resolution: Must be ``None``: splitting the elements first
+            comes with the structure operations (``split``), not ported yet.
+        """
+        if resolution is not None:
+            raise NotImplementedError(
+                "resolution= needs Element.split, which comes with the structure operations."
+            )
+        check_module_device(self, beam_device(incoming))
+        yield incoming
+        for element in self.elements:
+            incoming = element._track(incoming)
+            yield incoming
+
+    def get_beam_attrs_along_segment(
+        self,
+        attr_names: tuple[str, ...] | str,
+        incoming: Beam,
+        resolution: float | None = None,
+    ) -> tuple[torch.Tensor, ...] | torch.Tensor:
+        """Any beam attribute at the entrance and after every element,
+        stacked along a new dimension just before the attribute's own
+        trailing dimensions."""
+        names = attr_names if isinstance(attr_names, tuple) else (attr_names,)
+        values = zip(
+            *(
+                tuple(getattr(beam, name) for name in names)
+                for beam in self.beam_along_segment_generator(incoming, resolution)
+            )
+        )
+        stacked = tuple(
+            torch.stack(
+                torch.broadcast_tensors(*along),
+                dim=-(incoming.UNVECTORIZED_NUM_ATTR_DIMS.get(name, 0) + 1),
+            )
+            for along, name in zip(values, names)
+        )
+        return stacked if isinstance(attr_names, tuple) else stacked[0]
 
     def _plan(self) -> list[Element]:
         """Partition the elements into fused skippable runs and individual
@@ -113,3 +254,24 @@ class Segment(Element):
     def extra_repr(self) -> str:
         # The elements print as child modules.
         return f"name={self.name!r}"
+
+
+def _is_second_order_leaf(element: Element) -> bool:
+    """Whether the element is a ``second_order``-tracked leaf (not a nested
+    segment, which plans its own elements)."""
+    return (
+        not isinstance(element, Segment)
+        and getattr(element, "tracking_method", "linear") == "second_order"
+    )
+
+
+def _is_active_observer(element: Element) -> bool:
+    return hasattr(element, "observe") and getattr(element, "is_active", False)
+
+
+def _contains_active_observer(element: Element) -> bool:
+    """Whether the (possibly nested) element holds an active observer that
+    :meth:`Segment.track_with_readings` must stop at."""
+    if isinstance(element, Segment):
+        return any(_contains_active_observer(child) for child in element.elements)
+    return _is_active_observer(element)

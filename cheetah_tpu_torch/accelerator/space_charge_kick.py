@@ -233,6 +233,10 @@ class SpaceChargeKick(Element):
     # ------------------------------------------------------------------
 
     def _track(self, incoming: ParticleBeam) -> ParticleBeam:
+        if not isinstance(incoming, ParticleBeam):
+            raise TypeError(
+                "SpaceChargeKick tracking is currently only supported for `ParticleBeam`."
+            )
         # Sub-f32 beams compute the collective effect in f32 and cast back:
         # the FFT has no sub-f32 path that fits, and the density deposit would
         # be meaningless at 8 mantissa bits.

@@ -14,17 +14,20 @@ import numpy as np
 import torch
 
 from cheetah_tpu_torch import accelerator
-from cheetah_tpu_torch.particles import ParticleBeam, Species
+from cheetah_tpu_torch.particles import ParameterBeam, ParticleBeam, Species
 from cheetah_tpu_torch.utils.device import resolve_device
 
 #: Element types that :func:`segment_from_numpy` can build.
 ELEMENT_TYPES = {
     name: getattr(accelerator, name)
     for name in (
+        "Aperture",
+        "BPM",
         "Drift",
         "HorizontalCorrector",
         "Marker",
         "Quadrupole",
+        "Screen",
         "Segment",
         "SpaceChargeKick",
         "VerticalCorrector",
@@ -50,9 +53,7 @@ def _element_from_dict(spec: dict[str, Any], device: torch.device):
         key: torch.tensor(value, device=device) if isinstance(value, np.ndarray) else value
         for key, value in spec.items()
     }
-    if type_name == "Marker":
-        kwargs["device"] = device
-    return ELEMENT_TYPES[type_name](sanitize_name=False, **kwargs)
+    return ELEMENT_TYPES[type_name](sanitize_name=False, device=device, **kwargs)
 
 
 def segment_from_numpy(
@@ -65,7 +66,8 @@ def segment_from_numpy(
     :param elements: One dict per element: ``"type"`` (the class name),
         ``"name"``, a numpy array for every physical field (``length``,
         ``k1``, ``misalignment``, ...) and the static configuration
-        (``tracking_method``, ``grid_shape``, ...), all under the
+        (``tracking_method``, ``grid_shape``, ``resolution``, ``method``,
+        ``is_active``, ...), all under the
         constructor's keyword names. A ``"Segment"`` holds its children
         under ``"elements"``.
     :param device: Device of the lattice; the GPU when ``None``. The arrays
@@ -77,6 +79,18 @@ def segment_from_numpy(
         name=name,
         sanitize_name=False,
     )
+
+
+def _tensors_like(first: np.ndarray, device: torch.device | str | None):
+    """``first`` as a tensor on ``device`` (the GPU when ``None``), and a
+    function turning further arrays into tensors of its dtype there."""
+    device = resolve_device(device)
+    tensor = torch.tensor(np.asarray(first), device=device)
+
+    def convert(array: np.ndarray) -> torch.Tensor:
+        return torch.tensor(np.asarray(array), dtype=tensor.dtype, device=device)
+
+    return tensor, convert
 
 
 def particle_beam_from_numpy(
@@ -93,17 +107,37 @@ def particle_beam_from_numpy(
     :param species_name: A species of ``Species.known``.
     :param device: Device of the beam; the GPU when ``None``.
     """
-    device = resolve_device(device)
-    tensor = torch.tensor(np.asarray(particles), device=device)
-    dtype = tensor.dtype
-
-    def convert(array: np.ndarray) -> torch.Tensor:
-        return torch.tensor(np.asarray(array), dtype=dtype, device=device)
-
+    tensor, convert = _tensors_like(particles, device)
     return ParticleBeam(
         tensor,
         convert(energy),
         particle_charges=convert(particle_charges),
         survival_probabilities=convert(survival_probabilities),
-        species=Species(species_name, dtype=dtype, device=device),
+        species=Species(species_name, dtype=tensor.dtype, device=tensor.device),
+    )
+
+
+def parameter_beam_from_numpy(
+    mu: np.ndarray,
+    cov: np.ndarray,
+    energy: np.ndarray,
+    total_charge: np.ndarray,
+    s: np.ndarray | None = None,
+    species_name: str = "electron",
+    device: torch.device | str | None = None,
+) -> ParameterBeam:
+    """Build a :class:`ParameterBeam` from its arrays; the dtype is that of
+    ``mu``.
+
+    :param species_name: A species of ``Species.known``.
+    :param device: Device of the beam; the GPU when ``None``.
+    """
+    tensor, convert = _tensors_like(mu, device)
+    return ParameterBeam(
+        tensor,
+        convert(cov),
+        convert(energy),
+        total_charge=convert(total_charge),
+        s=convert(s) if s is not None else None,
+        species=Species(species_name, dtype=tensor.dtype, device=tensor.device),
     )

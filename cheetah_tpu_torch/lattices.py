@@ -2,7 +2,7 @@
 
 The ARES Experimental Area (EA) subcell is the section from AREASOLA1 to
 AREABSCR1 of the ARES accelerator at DESY: drifts, three quadrupoles and two
-corrector coils.
+corrector coils, ending at the AREABSCR1 screen.
 """
 
 from __future__ import annotations
@@ -14,18 +14,24 @@ from cheetah_tpu_torch.accelerator import (
     HorizontalCorrector,
     Marker,
     Quadrupole,
+    Screen,
     Segment,
     VerticalCorrector,
 )
 
 
 def ares_ea_subcell(
-    dtype: torch.dtype = torch.float32, device: torch.device | str | None = None
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str | None = None,
+    screen: bool = False,
 ) -> Segment:
     """ARES EA quadrupole-triplet subcell (AREASOLA1 -> AREABSCR1), 13
-    elements, ending in a marker where the JAX package can place its screen.
+    elements.
 
     :param device: Device of the lattice parameters; the GPU when ``None``.
+    :param screen: End in the active AREABSCR1 screen (2448 x 2040 pixels
+        of 3.3198 x 2.4469 um, binning 1, cloud-in-cell) instead of a
+        marker.
     """
     kw = {"dtype": dtype, "device": device}
     elements = [
@@ -41,6 +47,17 @@ def ares_ea_subcell(
         Drift(0.179, name="Drift_AREAMQZM3", **kw),
         HorizontalCorrector(0.02, angle=-1e-4, name="AREAMCHM1", **kw),
         Drift(0.45, name="Drift_AREAMCHM1", **kw),
-        Marker(name="AREABSCR1", **kw),
+        (
+            Screen(
+                resolution=(2448, 2040),
+                pixel_size=(3.3198e-6, 2.4469e-6),
+                binning=1,
+                is_active=True,
+                name="AREABSCR1",
+                **kw,
+            )
+            if screen
+            else Marker(name="AREABSCR1", **kw)
+        ),
     ]
     return Segment(elements, name="ARES_EA")

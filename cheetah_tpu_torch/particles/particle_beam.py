@@ -20,7 +20,14 @@ from cheetah_tpu_torch.utils.device import (
     infer_dtype_device,
     same_device,
 )
-from cheetah_tpu_torch.utils.statistics import match_distribution_moments
+from cheetah_tpu_torch.utils.elementwise_linspace import elementwise_linspace
+from cheetah_tpu_torch.utils.statistics import (
+    match_distribution_moments,
+    unbiased_weighted_covariance,
+    unbiased_weighted_covariance_matrix,
+)
+
+_COMPONENTS = ("x", "px", "y", "py", "tau", "p")
 
 
 def _component(index: int, name: str) -> property:
@@ -48,6 +55,16 @@ def _std(index: int, name: str) -> property:
     )
 
 
+def _cov(first: int, second: int, name: str) -> property:
+    return property(
+        lambda self: unbiased_weighted_covariance(
+            self.particles[..., first], self.particles[..., second],
+            self.survival_probabilities,
+        ),
+        doc=f"Weighted covariance {name}.",
+    )
+
+
 class ParticleBeam(Beam):
     """Beam of charged macroparticles.
 
@@ -63,6 +80,13 @@ class ParticleBeam(Beam):
     Every tensor must lie on the device of ``particles``; a tensor on another
     device raises instead of being moved.
     """
+
+    UNVECTORIZED_NUM_ATTR_DIMS = Beam.UNVECTORIZED_NUM_ATTR_DIMS | {
+        "particles": 2,
+        "particle_charges": 1,
+        "survival_probabilities": 1,
+        **{component: 1 for component in _COMPONENTS},
+    }
 
     def __init__(
         self,
@@ -271,6 +295,80 @@ class ParticleBeam(Beam):
         )
 
     @classmethod
+    def make_linspaced(
+        cls,
+        num_particles: int = 10,
+        mu_x: torch.Tensor | float | None = None,
+        mu_px: torch.Tensor | float | None = None,
+        mu_y: torch.Tensor | float | None = None,
+        mu_py: torch.Tensor | float | None = None,
+        mu_tau: torch.Tensor | float | None = None,
+        mu_p: torch.Tensor | float | None = None,
+        sigma_x: torch.Tensor | float | None = None,
+        sigma_px: torch.Tensor | float | None = None,
+        sigma_y: torch.Tensor | float | None = None,
+        sigma_py: torch.Tensor | float | None = None,
+        sigma_tau: torch.Tensor | float | None = None,
+        sigma_p: torch.Tensor | float | None = None,
+        energy: torch.Tensor | float | None = None,
+        total_charge: torch.Tensor | float | None = None,
+        particle_charges: torch.Tensor | None = None,
+        survival_probabilities: torch.Tensor | None = None,
+        s: torch.Tensor | float | None = None,
+        species: Species | None = None,
+        dtype: torch.dtype | None = None,
+        device: torch.device | str | None = None,
+    ) -> "ParticleBeam":
+        """A beam of evenly spaced particles spanning +-1 sigma in each
+        dimension."""
+        given = {
+            "mu_x": (mu_x, 0.0), "mu_px": (mu_px, 0.0), "mu_y": (mu_y, 0.0),
+            "mu_py": (mu_py, 0.0), "mu_tau": (mu_tau, 0.0), "mu_p": (mu_p, 0.0),
+            "sigma_x": (sigma_x, 175e-9), "sigma_px": (sigma_px, 2e-7),
+            "sigma_y": (sigma_y, 175e-9), "sigma_py": (sigma_py, 2e-7),
+            "sigma_tau": (sigma_tau, 1e-6), "sigma_p": (sigma_p, 1e-6),
+            "energy": (energy, 1e8),
+        }
+        dtype, device = infer_dtype_device(
+            [value for value, _ in given.values()] + [total_charge, particle_charges, s],
+            dtype, device,
+        )
+        t = {
+            name: as_float_tensor(
+                value if value is not None else default, dtype=dtype, device=device
+            )
+            for name, (value, default) in given.items()
+        }
+        if species is None:
+            species = Species("electron", dtype=dtype, device=device)
+        if particle_charges is None:
+            if total_charge is None:
+                total_charge = species.charge_coulomb.to(dtype) * num_particles
+            total_charge = as_float_tensor(total_charge, dtype=dtype, device=device)
+            particle_charges = (
+                torch.ones((*total_charge.shape, num_particles), dtype=dtype, device=device)
+                * total_charge[..., None]
+                / num_particles
+            )
+        coords = torch.broadcast_tensors(
+            *(
+                elementwise_linspace(
+                    t[f"mu_{c}"] - t[f"sigma_{c}"], t[f"mu_{c}"] + t[f"sigma_{c}"], num_particles
+                )
+                for c in _COMPONENTS
+            )
+        )
+        particles = torch.stack([*coords, torch.ones_like(coords[0])], dim=-1)
+        return cls(
+            particles,
+            t["energy"],
+            particle_charges=particle_charges,
+            survival_probabilities=survival_probabilities,
+            s=s,
+            species=species,
+        )
+
+    @classmethod
     def from_xyz_pxpypz(
         cls,
         xp_coordinates: torch.Tensor,
@@ -364,13 +462,138 @@ class ParticleBeam(Beam):
         )
 
     # ------------------------------------------------------------------
+    # Transformations
+    # ------------------------------------------------------------------
+
+    def transformed_to(
+        self,
+        mu_x: torch.Tensor | float | None = None,
+        mu_px: torch.Tensor | float | None = None,
+        mu_y: torch.Tensor | float | None = None,
+        mu_py: torch.Tensor | float | None = None,
+        mu_tau: torch.Tensor | float | None = None,
+        mu_p: torch.Tensor | float | None = None,
+        sigma_x: torch.Tensor | float | None = None,
+        sigma_px: torch.Tensor | float | None = None,
+        sigma_y: torch.Tensor | float | None = None,
+        sigma_py: torch.Tensor | float | None = None,
+        sigma_tau: torch.Tensor | float | None = None,
+        sigma_p: torch.Tensor | float | None = None,
+        energy: torch.Tensor | float | None = None,
+        total_charge: torch.Tensor | float | None = None,
+        species: Species | None = None,
+    ) -> "ParticleBeam":
+        """This beam shifted and scaled per dimension to new means and
+        standard deviations; the others are kept."""
+        dtype, device = self.particles.dtype, self.particles.device
+        given = {
+            "mu_x": mu_x, "mu_px": mu_px, "mu_y": mu_y, "mu_py": mu_py,
+            "mu_tau": mu_tau, "mu_p": mu_p, "sigma_x": sigma_x, "sigma_px": sigma_px,
+            "sigma_y": sigma_y, "sigma_py": sigma_py, "sigma_tau": sigma_tau,
+            "sigma_p": sigma_p,
+        }
+
+        def stacked(kind: str, new: bool) -> torch.Tensor:
+            values = [
+                as_float_tensor(given[f"{kind}_{c}"], dtype=dtype, device=device)
+                if new and given[f"{kind}_{c}"] is not None
+                else getattr(self, f"{kind}_{c}")
+                for c in _COMPONENTS
+            ]
+            return torch.stack(torch.broadcast_tensors(*values), dim=-1)
+
+        if total_charge is None:
+            particle_charges = self.particle_charges
+        else:
+            total_charge = as_float_tensor(total_charge, dtype=dtype, device=device)
+            particle_charges = (
+                torch.ones_like(self.particle_charges)
+                * total_charge[..., None]
+                / self.particle_charges.shape[-1]
+            )
+        old_mu, new_mu = stacked("mu", False), stacked("mu", True)
+        old_sigma, new_sigma = stacked("sigma", False), stacked("sigma", True)
+        phase_space = (self.particles[..., :6] - old_mu[..., None, :]) / old_sigma[
+            ..., None, :
+        ] * new_sigma[..., None, :] + new_mu[..., None, :]
+        return self.__class__(
+            torch.cat([phase_space, torch.ones_like(phase_space[..., :1])], dim=-1),
+            energy if energy is not None else self.energy,
+            particle_charges=particle_charges,
+            survival_probabilities=self.survival_probabilities,
+            s=self.s,
+            species=species if species is not None else self.species,
+            dtype=dtype,
+        )
+
+    def as_parameter_beam(self) -> "ParameterBeam":  # noqa: F821
+        """Collapse to a Gaussian-moments :class:`ParameterBeam`: the
+        survival-weighted mean and the unbiased weighted covariance of all
+        seven coordinates, as the JAX package computes them."""
+        from cheetah_tpu_torch.particles.parameter_beam import ParameterBeam
+
+        weights = self.survival_probabilities
+        mu = torch.sum(self.particles * weights[..., None], dim=-2) / torch.sum(
+            weights, dim=-1, keepdim=True
+        )
+        return ParameterBeam(
+            mu=mu,
+            cov=unbiased_weighted_covariance_matrix(self.particles, weights),
+            energy=self.energy,
+            total_charge=self.total_charge,
+            s=self.s,
+            species=self.species,
+        )
+
+    def linspaced(self, num_particles: int) -> "ParticleBeam":
+        """Evenly spaced beam with this beam's means and standard
+        deviations."""
+        return self.make_linspaced(
+            num_particles=num_particles,
+            **{f"mu_{c}": getattr(self, f"mu_{c}") for c in _COMPONENTS},
+            **{f"sigma_{c}": getattr(self, f"sigma_{c}") for c in _COMPONENTS},
+            energy=self.energy,
+            total_charge=self.total_charge,
+            s=self.s,
+            species=self.species,
+        )
+
+    def clone(self) -> "ParticleBeam":
+        """Copy of the beam with every tensor copied."""
+        return self.__class__(
+            self.particles.clone(),
+            self.energy.clone(),
+            particle_charges=self.particle_charges.clone(),
+            survival_probabilities=self.survival_probabilities.clone(),
+            s=self.s.clone(),
+            species=self.species.clone(),
+        )
+
+    # ------------------------------------------------------------------
     # Statistics
     # ------------------------------------------------------------------
+
+    @property
+    def defining_features(self) -> list[str]:
+        """Features that define the beam."""
+        return [
+            "particles",
+            "energy",
+            "particle_charges",
+            "survival_probabilities",
+            "s",
+            "species",
+        ]
 
     @property
     def num_particles(self) -> int:
         """Number of macroparticles (ignoring losses)."""
         return self.particles.shape[-2]
+
+    @property
+    def num_particles_survived(self) -> torch.Tensor:
+        """Expected number of surviving macroparticles."""
+        return torch.sum(self.survival_probabilities, dim=-1)
 
     @property
     def total_charge(self) -> torch.Tensor:
@@ -437,6 +660,22 @@ class ParticleBeam(Beam):
     sigma_py = _std(3, "py")
     sigma_tau = _std(4, "tau")
     sigma_p = _std(5, "p")
+
+    cov_xpx = _cov(0, 1, "x-px")
+    cov_ypy = _cov(2, 3, "y-py")
+    cov_taup = _cov(4, 5, "tau-p")
+    cov_xp = _cov(0, 5, "x-p")
+    cov_pxp = _cov(1, 5, "px-p")
+    cov_yp = _cov(2, 5, "y-p")
+    cov_pyp = _cov(3, 5, "py-p")
+    cov_xy = _cov(0, 2, "x-y")
+    cov_xpy = _cov(0, 3, "x-py")
+    cov_xtau = _cov(0, 4, "x-tau")
+    cov_pxy = _cov(1, 2, "px-y")
+    cov_pxpy = _cov(1, 3, "px-py")
+    cov_pxtau = _cov(1, 4, "px-tau")
+    cov_ytau = _cov(2, 4, "y-tau")
+    cov_pytau = _cov(3, 4, "py-tau")
 
     def __repr__(self) -> str:
         return (

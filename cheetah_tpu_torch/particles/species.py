@@ -99,6 +99,13 @@ class Species:
         species.mass_eV = self.mass_eV.to(device, dtype)
         return species
 
+    def clone(self) -> "Species":
+        """Copy of the species with its tensors copied."""
+        species = self.to()
+        species.num_elementary_charges = species.num_elementary_charges.clone()
+        species.mass_eV = species.mass_eV.clone()
+        return species
+
     def __eq__(self, other: object) -> bool:
         return (
             isinstance(other, Species)

@@ -17,6 +17,12 @@ segment, forward and with their gradients, the latter on the 32^3 grid of
 the untiled kernels and the 128^3 grid of the x-tiled ones), checks them
 against the port's own float64 run on the CPU and a float64 finite
 difference on the card, and times kernels and paths with CUDA events.
+Then the diagnostics paths, which run no hand-written kernel: the env step
+with a ``ParameterBeam``, ``Segment.track_moments``, the AREABSCR1 screen
+read through ``track_with_readings`` (histogram, cloud-in-cell, KDE at
+binning 8 and on its window at binning 1, 100k particles on 2448 x 2040
+pixels) and the gradient of the screen's centroid, each against a float64
+run of the port, with the CIC kernels' launch counts (all 0).
 Every phase prints one JSON line. The last line is
 ``{"ok": true, "device": {...}}``; any failed check raises, so the script
 exits non-zero and prints no such line. It imports neither JAX nor the JAX
@@ -92,6 +98,36 @@ SC_GRAD_FD_RTOL = 1e-4
 # (float64), relative to the largest gradient entry: a 13-matrix product
 # and a raw-moment variance in float32, as for sigma_x (1.8e-6 measured).
 ENV_GRAD_TOLERANCE = 1e-4
+# The ParameterBeam env step and track_moments on the card (float32) against
+# the port's float64 CPU run: a 13-matrix product and a 7x7 congruence in
+# float32 (~1e-6 expected); track_moments reads the centred covariance of
+# the particles, track(...).sigma_x their raw-moment variance, both over
+# 10k particles in float32.
+PARAMETER_BEAM_RTOL = 1e-4
+MOMENTS_RTOL = 1e-4
+# Screen images on the card (float32) against a float64 run of the port.
+# Histograms compare by mass (rel 1e-5: a float32 sum of 100k weights) and
+# by their L1 difference over the mass: a particle within float32 rounding
+# (~1e-10 m) of a 3.3 um pixel edge may fall in the neighbouring pixel,
+# ~1e-4 of the particles, each moving 2 / N of the L1 norm. Cloud-in-cell
+# and KDE images are smooth in the positions: their largest pixel
+# difference within 1e-4 of their largest pixel.
+IMAGE_MASS_RTOL = 1e-5
+HISTOGRAM_L1_TOLERANCE = 1e-3
+IMAGE_MAX_TOLERANCE = 1e-4
+# The screen centroid (scripts/bench_all.py centroid_loss) on the card
+# (float32) against the port's float64 CPU run. Its gradient with respect to
+# AREAMQZM1's k1 is zero up to rounding: the beam enters the quadrupole
+# centred and the cloud-in-cell centroid is the particles' mean x, which
+# only the downstream corrector AREAMCHM1 moves. So that gradient is held
+# to an absolute 1e-6 of sigma_x at the screen per unit k1, and the
+# gradient with respect to the corrector's angle (~0.45 m) is held to rel
+# 1e-4 and to an f64 central difference on the card (rel 1e-6; the
+# centroid is linear in the angle).
+CENTROID_RTOL = 1e-4
+CENTROID_K1_GRAD_ATOL_PER_SIGMA = 1e-6
+CENTROID_ANGLE_GRAD_RTOL = 1e-4
+CENTROID_FD_RTOL = 1e-6
 
 
 def emit(phase: str, **fields) -> None:
@@ -1263,6 +1299,263 @@ def phase_env_step_grad(ctt, wrappers) -> None:
     check(error <= ENV_GRAD_TOLERANCE, f"env step k1 gradient off by {error}")
 
 
+def _no_cic_launches(wrappers, label: str) -> dict:
+    """The CIC kernels' launch counts since the last reset, which must all
+    be 0: the diagnostics paths run no hand-written kernel."""
+    launches = _launches(wrappers)
+    check(not any(launches.values()), f"{label} launched CIC kernels: {launches}")
+    return launches
+
+
+def phase_parameter_beam_env_step(ctt, wrappers) -> None:
+    """The ARES EA env step with the ParameterBeam of
+    ``scripts/bench_all.py:300-308``: 4096 instances of ``k1``, f32, every
+    instance's sigma_x against the port's float64 CPU run."""
+    from cheetah_tpu_torch.lattices import ares_ea_subcell
+
+    num_instances = 4096
+    segment = ares_ea_subcell(torch.float32)
+    segment.AREAMQZM1.k1 = torch.linspace(-20, 20, num_instances, device="cuda")
+    beam = ctt.ParameterBeam.from_twiss(
+        beta_x=5.0, emittance_x=2e-9, beta_y=3.0, emittance_y=2e-9, energy=1.54e8,
+        dtype=torch.float32, device="cuda",
+    )
+
+    _reset_launches(wrappers)
+    sigma_x = segment.track(beam).sigma_x
+    launches = _no_cic_launches(wrappers, "the ParameterBeam env step")
+    check(tuple(sigma_x.shape) == (num_instances,), f"sigma_x shape {tuple(sigma_x.shape)}")
+    check(bool(torch.isfinite(sigma_x).all()), "non-finite sigma_x")
+
+    reference = ares_ea_subcell(torch.float64, device="cpu")
+    reference.AREAMQZM1.k1 = segment.AREAMQZM1.k1.cpu().double()
+    expected = reference.track(beam.to("cpu", torch.float64)).sigma_x
+    error = ((sigma_x.cpu().double() - expected).abs() / expected).max().item()
+
+    def step():
+        return segment.track(beam).sigma_x
+
+    ms = time_ms(step, runs=50)
+    profile_path("parameter_beam_env_step", step, ms)
+    emit(
+        "parameter_beam_env_step",
+        instances=num_instances, elements=len(segment.elements), ms=ms, graph_ms=graph_ms(step),
+        sigma_x_rel_err_vs_cpu_f64=error, cic_kernel_launches=launches,
+    )
+    check(error <= PARAMETER_BEAM_RTOL, f"ParameterBeam sigma_x off by {error} relative")
+
+
+def phase_env_moments(ctt, wrappers) -> None:
+    """``Segment.track_moments`` of the 10k-particle beam through the 4096
+    instances (``env_moments`` of ``scripts/bench_all.py:155-165``): sigma_x
+    against ``track(...).sigma_x`` on the card and the port's float64 CPU
+    run of ``track_moments``."""
+    from cheetah_tpu_torch.lattices import ares_ea_subcell
+
+    num_instances, num_particles = 4096, 10_000
+    segment = ares_ea_subcell(torch.float32)
+    segment.AREAMQZM1.k1 = torch.linspace(-20, 20, num_instances, device="cuda")
+    beam = _bench_beam(ctt, num_particles, "cuda", torch.Generator(device="cuda").manual_seed(SEED))
+
+    _reset_launches(wrappers)
+    moments = segment.track_moments(beam)
+    launches = _no_cic_launches(wrappers, "track_moments")
+    check(isinstance(moments, ctt.ParameterBeam), f"track_moments gave {type(moments)}")
+    sigma_x = moments.sigma_x
+    check(bool(torch.isfinite(sigma_x).all()), "non-finite track_moments sigma_x")
+    tracked = segment.track(beam).sigma_x
+    vs_track = ((sigma_x - tracked).abs() / tracked).max().item()
+
+    reference = ares_ea_subcell(torch.float64, device="cpu")
+    reference.AREAMQZM1.k1 = segment.AREAMQZM1.k1.cpu().double()
+    expected = reference.track_moments(beam.to("cpu", torch.float64)).sigma_x
+    vs_cpu = ((sigma_x.cpu().double() - expected).abs() / expected).max().item()
+
+    def step():
+        return segment.track_moments(beam).sigma_x
+
+    ms = time_ms(step, runs=50)
+    profile_path("env_moments", step, ms)
+    emit(
+        "env_moments",
+        instances=num_instances, particles=num_particles, ms=ms,
+        track_ms=time_ms(lambda: segment.track(beam).sigma_x, runs=20),
+        sigma_x_rel_diff_vs_track=vs_track, sigma_x_rel_err_vs_cpu_f64=vs_cpu,
+        cic_kernel_launches=launches,
+    )
+    check(vs_track <= MOMENTS_RTOL, f"track_moments vs track: sigma_x off by {vs_track}")
+    check(vs_cpu <= MOMENTS_RTOL, f"track_moments sigma_x off by {vs_cpu} against the CPU")
+
+
+SCREEN_CASES = (("histogram", 1), ("cloud-in-cell", 1), ("kde", 8), ("kde", 1))
+
+
+def _screen_segment(dtype, device, method, binning):
+    from cheetah_tpu_torch.lattices import ares_ea_subcell
+
+    segment = ares_ea_subcell(dtype, device=device, screen=True)
+    segment.AREABSCR1.method = method
+    segment.AREABSCR1.binning = binning
+    return segment
+
+
+def _read_screen(segment, beam) -> torch.Tensor:
+    return segment.track_with_readings(beam)[1]["AREABSCR1"]
+
+
+def _image_errors(method: str, image: torch.Tensor, expected: torch.Tensor) -> dict:
+    image, expected = image.cpu().double(), expected.cpu().double()
+    mass = expected.sum().item()
+    errors = {"mass_rel_err": abs(image.sum().item() - mass) / abs(mass)}
+    if method == "histogram":
+        errors["l1_over_mass"] = (image - expected).abs().sum().item() / abs(mass)
+        check(errors["l1_over_mass"] <= HISTOGRAM_L1_TOLERANCE, f"{method}: {errors}")
+    else:
+        errors["max_rel_err"] = relative_error(image, expected)[1]
+        check(errors["max_rel_err"] <= IMAGE_MAX_TOLERANCE, f"{method}: {errors}")
+    check(errors["mass_rel_err"] <= IMAGE_MASS_RTOL, f"{method}: {errors}")
+    return errors
+
+
+def phase_screen_readings(ctt, wrappers) -> None:
+    """``ares_ea_subcell(screen=True)`` read through ``track_with_readings``
+    with the 100k-particle beam of ``scripts/bench_all.py:115-128``, in each
+    method of ``bench_all.py:326-348`` (histogram, cloud-in-cell, KDE at
+    binning 8, KDE at binning 1 on its window), each image against a
+    float64 run of the port: on the CPU, or for the KDE at binning 1 the
+    card's own float64 run plus a 10k-particle float64 run on the CPU."""
+    from cheetah_tpu_torch.utils import kde
+
+    num_particles = 100_000
+    generator = torch.Generator(device="cuda").manual_seed(SEED)
+    beam = _bench_beam(ctt, num_particles, "cuda", generator)
+    beam_cpu = beam.to("cpu", torch.float64)
+    for method, binning in SCREEN_CASES:
+        label = f"screen_{method.replace('-', '_')}_binning{binning}"
+        segment = _screen_segment(torch.float32, "cuda", method, binning)
+        _reset_launches(wrappers)
+        image = _read_screen(segment, beam)
+        launches = _no_cic_launches(wrappers, label)
+        nx, ny = segment.AREABSCR1.effective_resolution
+        check(tuple(image.shape) == (ny, nx), f"{label}: image shape {tuple(image.shape)}")
+        check(bool(torch.isfinite(image).all()), f"{label}: non-finite image")
+        fields = {}
+        if method == "kde" and binning == 1:
+            at_screen = segment.track(beam)
+            screen = segment.AREABSCR1
+            _, _, fits = kde.window_placement(
+                at_screen.x, at_screen.y, *screen.pixel_bin_centers, screen.kde_bandwidth,
+                512,
+            )
+            fields["kde_window"] = "held" if fits else "fell back to the full evaluation"
+            card64 = _read_screen(_screen_segment(torch.float64, "cuda", method, binning),
+                                  beam.to(dtype=torch.float64))
+            fields["vs_card_f64"] = _image_errors(method, image, card64)
+            small = _bench_beam(ctt, 10_000, "cuda",
+                                torch.Generator(device="cuda").manual_seed(SEED + 1))
+            start = time.perf_counter()
+            small_cpu = _read_screen(_screen_segment(torch.float64, "cpu", method, binning),
+                                     small.to("cpu", torch.float64))
+            fields["cpu_f64_seconds"] = time.perf_counter() - start
+            fields["vs_cpu_f64_10k"] = _image_errors(method, _read_screen(segment, small),
+                                                     small_cpu)
+        else:
+            start = time.perf_counter()
+            expected = _read_screen(_screen_segment(torch.float64, "cpu", method, binning),
+                                    beam_cpu)
+            fields["cpu_f64_seconds"] = time.perf_counter() - start
+            fields["vs_cpu_f64"] = _image_errors(method, image, expected)
+
+        def read():
+            return _read_screen(segment, beam)
+
+        ms = time_ms(read, runs=10)
+        profile_path(label, read, ms)
+        emit("screen_readings", case=label, particles=num_particles, pixels=[nx, ny],
+             dtype="float32", ms=ms, cic_kernel_launches=launches, **fields)
+
+
+def _centroid(segment) -> tuple:
+    """``centroid_loss`` of ``scripts/bench_all.py:359-365`` on the beam's
+    reading of AREABSCR1."""
+
+    def loss(beam):
+        image = _read_screen(segment, beam)
+        centers_x, _ = segment.AREABSCR1.pixel_bin_centers
+        column_mass = torch.sum(image, dim=-2)
+        return torch.sum(column_mass * centers_x) / torch.sum(column_mass)
+
+    return loss
+
+
+def _centroid_value_and_grads(segment, beam, k1: float, angle: float):
+    """The centroid and its gradients with respect to AREAMQZM1's k1 and
+    AREAMCHM1's angle."""
+    dtype, device = beam.particles.dtype, beam.particles.device
+    k1 = torch.tensor(k1, dtype=dtype, device=device, requires_grad=True)
+    angle = torch.tensor(angle, dtype=dtype, device=device, requires_grad=True)
+    segment.AREAMQZM1.k1 = k1
+    segment.AREAMCHM1.angle = angle
+    value = _centroid(segment)(beam)
+    grad_k1, grad_angle = torch.autograd.grad(value, (k1, angle))
+    return value.item(), grad_k1.item(), grad_angle.item()
+
+
+def phase_grad_screen_centroid(ctt, wrappers) -> None:
+    """value_and_grad of the AREABSCR1 centroid (cloud-in-cell, binning 1)
+    at ``k1 = 4.0``, 10k particles, f32 on the card, against the port's
+    float64 CPU run and a float64 central difference on the card."""
+    num_particles, k1, angle = 10_000, 4.0, -1e-4
+    beam = _bench_beam(ctt, num_particles, "cuda", torch.Generator(device="cuda").manual_seed(SEED))
+    segment = _screen_segment(torch.float32, "cuda", "cloud-in-cell", 1)
+    _reset_launches(wrappers)
+    value, grad_k1, grad_angle = _centroid_value_and_grads(segment, beam, k1, angle)
+    launches = _no_cic_launches(wrappers, "grad_screen_centroid")
+
+    start = time.perf_counter()
+    beam_cpu = beam.to("cpu", torch.float64)
+    segment_cpu = _screen_segment(torch.float64, "cpu", "cloud-in-cell", 1)
+    cpu = _centroid_value_and_grads(segment_cpu, beam_cpu, k1, angle)
+    cpu_seconds = time.perf_counter() - start
+    k1_atol = CENTROID_K1_GRAD_ATOL_PER_SIGMA * segment_cpu.track(beam_cpu).sigma_x.item()
+
+    segment64 = _screen_segment(torch.float64, "cuda", "cloud-in-cell", 1)
+    beam64 = beam.to(dtype=torch.float64)
+    card64 = _centroid_value_and_grads(segment64, beam64, k1, angle)
+
+    def centroid64(k1_value, angle_value):
+        segment64.AREAMQZM1.k1 = torch.tensor(k1_value, dtype=torch.float64, device="cuda")
+        segment64.AREAMCHM1.angle = torch.tensor(angle_value, dtype=torch.float64, device="cuda")
+        return _centroid(segment64)(beam64).item()
+
+    with torch.no_grad():
+        fd_k1 = (centroid64(k1 + 1e-3, angle) - centroid64(k1 - 1e-3, angle)) / 2e-3
+        fd_angle = (centroid64(k1, angle + 1e-6) - centroid64(k1, angle - 1e-6)) / 2e-6
+
+    ms = time_ms(lambda: _centroid_value_and_grads(segment, beam, k1, angle), runs=10)
+    profile_path("grad_screen_centroid",
+                 lambda: _centroid_value_and_grads(segment, beam, k1, angle), ms)
+    value_error = abs(value - cpu[0]) / abs(cpu[0])
+    angle_error = abs(grad_angle - cpu[2]) / abs(cpu[2])
+    fd_angle_error = abs(fd_angle - card64[2]) / abs(card64[2])
+    emit(
+        "grad_screen_centroid",
+        particles=num_particles, pixels=[2448, 2040], method="cloud-in-cell", dtype="float32",
+        ms=ms, value=value, value_cpu_f64=cpu[0], value_rel_err=value_error,
+        grad_k1=grad_k1, grad_k1_cpu_f64=cpu[1], grad_k1_card_f64=card64[1],
+        finite_difference_k1_f64=fd_k1, grad_k1_atol=k1_atol,
+        grad_angle=grad_angle, grad_angle_cpu_f64=cpu[2], grad_angle_rel_err=angle_error,
+        grad_angle_card_f64=card64[2], finite_difference_angle_f64=fd_angle,
+        fd_angle_rel_diff=fd_angle_error, cpu_f64_seconds=cpu_seconds,
+        cic_kernel_launches=launches,
+    )
+    check(value_error <= CENTROID_RTOL, f"centroid off by {value_error}")
+    check(abs(grad_k1 - cpu[1]) <= k1_atol, f"k1 gradient {grad_k1} against {cpu[1]}")
+    check(abs(card64[1] - fd_k1) <= k1_atol, f"k1 gradient {card64[1]} against its FD {fd_k1}")
+    check(angle_error <= CENTROID_ANGLE_GRAD_RTOL, f"angle gradient off by {angle_error}")
+    check(fd_angle_error <= CENTROID_FD_RTOL, f"angle FD off by {fd_angle_error}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; none is available.", file=sys.stderr)
@@ -1290,6 +1583,10 @@ def main() -> int:
         grid[0]: phase_sc_grad(ctt, wrappers, grid, cic_kernels.uses_tiled(grid))[0]
         for grid in ((32, 32, 32), (128, 128, 128))
     }
+    phase_parameter_beam_env_step(ctt, wrappers)
+    phase_env_moments(ctt, wrappers)
+    phase_screen_readings(ctt, wrappers)
+    phase_grad_screen_centroid(ctt, wrappers)
 
     def entry(name, source, replaces, measured, **extra):
         by_path = {"space_charge_segment": segment_launches[name],

@@ -66,6 +66,38 @@ def test_entry_points_raise_without_a_card():
     assert ares_ea_subcell(device="cpu").AREAMQZM1.k1.device.type == "cpu"
 
 
+@pytest.mark.parametrize(
+    "entry_point",
+    [
+        lambda: ctt.ParameterBeam.from_parameters(),
+        lambda: ctt.ParameterBeam.from_twiss(beta_x=5.0),
+        lambda: ctt.Screen(is_active=True),
+        lambda: ctt.BPM(is_active=True),
+        lambda: ctt.Aperture(x_max=1e-3),
+        lambda: ares_ea_subcell(screen=True),
+    ],
+    ids=["parameter_beam", "parameter_beam_twiss", "screen", "bpm", "aperture", "ares_screen"],
+)
+def test_diagnostics_entry_points_raise_without_a_card(entry_point):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry_point()
+
+
+def test_diagnostics_are_exported_and_run_on_the_cpu():
+    for name in ("ParameterBeam", "Screen", "BPM", "Aperture"):
+        assert name in ctt.__all__ and hasattr(ctt, name)
+    segment = ares_ea_subcell(torch.float64, device="cpu", screen=True)
+    assert isinstance(segment.AREABSCR1, ctt.Screen)
+    assert segment.AREABSCR1.pixel_size.device.type == "cpu"
+    beam = ctt.ParameterBeam.from_twiss(beta_x=5.0, beta_y=3.0, emittance_x=2e-9,
+                                        emittance_y=2e-9, dtype=torch.float64, device="cpu")
+    assert beam.mu.device.type == "cpu"
+    _, readings = segment.track_with_readings(beam)
+    assert readings["AREABSCR1"].shape == (2040, 2448)
+
+
 def test_wrappers_use_plain_versions_for_cpu_tensors():
     rng = np.random.default_rng(20)
     shape = (4, 5, 3)
