@@ -5,13 +5,18 @@ caller passes ``device="cpu"``. The cloud-in-cell deposit and gather of the
 space-charge kick are CUDA kernels written for Hopper (``csrc/cic.cu``),
 built with nvcc at first use. The screens' readouts (histogram,
 cloud-in-cell, KDE) and the moment tracking of ``ParameterBeam`` are plain
-PyTorch, as they are XLA in the JAX package.
+PyTorch, as they are XLA in the JAX package, and so are the nonlinear
+elements (Cavity, Dipole, Sextupole; second-order T-tensors and Bmad-X
+drift-kick-drift tracking). Every autograd Function of the package works
+under ``torch.func`` (``grad``, ``jvp``, ``jacfwd``, ``hessian``, ``vmap``).
 """
 
 from cheetah_tpu_torch import lattices
 from cheetah_tpu_torch.accelerator import (
     BPM,
     Aperture,
+    Cavity,
+    Dipole,
     Drift,
     Element,
     HorizontalCorrector,
@@ -19,6 +24,7 @@ from cheetah_tpu_torch.accelerator import (
     Quadrupole,
     Screen,
     Segment,
+    Sextupole,
     SpaceChargeKick,
     VerticalCorrector,
 )
@@ -28,6 +34,8 @@ __all__ = [
     "Aperture",
     "BPM",
     "Beam",
+    "Cavity",
+    "Dipole",
     "Drift",
     "Element",
     "HorizontalCorrector",
@@ -37,6 +45,7 @@ __all__ = [
     "Quadrupole",
     "Screen",
     "Segment",
+    "Sextupole",
     "SpaceChargeKick",
     "Species",
     "VerticalCorrector",

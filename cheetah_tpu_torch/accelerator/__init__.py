@@ -2,18 +2,23 @@
 
 from cheetah_tpu_torch.accelerator.aperture import Aperture
 from cheetah_tpu_torch.accelerator.bpm import BPM
+from cheetah_tpu_torch.accelerator.cavity import Cavity
 from cheetah_tpu_torch.accelerator.correctors import HorizontalCorrector, VerticalCorrector
+from cheetah_tpu_torch.accelerator.dipole import Dipole
 from cheetah_tpu_torch.accelerator.drift import Drift
 from cheetah_tpu_torch.accelerator.element import Element
 from cheetah_tpu_torch.accelerator.marker import Marker
 from cheetah_tpu_torch.accelerator.quadrupole import Quadrupole
 from cheetah_tpu_torch.accelerator.screen import Screen
 from cheetah_tpu_torch.accelerator.segment import Segment
+from cheetah_tpu_torch.accelerator.sextupole import Sextupole
 from cheetah_tpu_torch.accelerator.space_charge_kick import SpaceChargeKick
 
 __all__ = [
     "Aperture",
     "BPM",
+    "Cavity",
+    "Dipole",
     "Drift",
     "Element",
     "HorizontalCorrector",
@@ -21,6 +26,7 @@ __all__ = [
     "Quadrupole",
     "Screen",
     "Segment",
+    "Sextupole",
     "SpaceChargeKick",
     "VerticalCorrector",
 ]

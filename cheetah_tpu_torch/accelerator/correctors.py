@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from cheetah_tpu_torch.accelerator.element import Element
-from cheetah_tpu_torch.ops.transfer_maps import drift_matrix
+from cheetah_tpu_torch.ops.transfer_maps import drift_matrix, with_entries
 from cheetah_tpu_torch.particles.species import Species
 
 
@@ -39,10 +39,7 @@ class _Corrector(Element):
         self, energy: torch.Tensor, species: Species
     ) -> torch.Tensor:
         tm = drift_matrix(self.length, energy, species)
-        shape = torch.broadcast_shapes(tm.shape, (*self.angle.shape, 1, 1))
-        tm = tm.expand(shape).clone()
-        tm[..., self._kick_row, 6] = self.angle
-        return tm
+        return with_entries(tm, {(self._kick_row, 6): self.angle})
 
     @property
     def is_skippable(self) -> bool:

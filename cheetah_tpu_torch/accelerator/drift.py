@@ -4,9 +4,15 @@ from __future__ import annotations
 
 import torch
 
-from cheetah_tpu_torch.accelerator.element import Element
-from cheetah_tpu_torch.ops.transfer_maps import drift_matrix
+from cheetah_tpu_torch.accelerator.element import (
+    Element,
+    dkd_outgoing,
+    require_particle_beam,
+)
+from cheetah_tpu_torch.ops.transfer_maps import base_ttensor, drift_matrix, with_first_order
+from cheetah_tpu_torch.particles import Beam, ParticleBeam
 from cheetah_tpu_torch.particles.species import Species
+from cheetah_tpu_torch.utils import bmadx
 
 
 class Drift(Element):
@@ -14,8 +20,7 @@ class Drift(Element):
 
     :param length: Length in m.
     :param tracking_method: One of ``"linear"``, ``"second_order"``,
-        ``"drift_kick_drift"``. Only ``"linear"`` is ported so far; the
-        others raise ``NotImplementedError`` when tracking.
+        ``"drift_kick_drift"`` (the exact Bmad-X drift).
     :param name: Unique identifier of the element.
     :param device: Device for parameters given as Python numbers; the GPU
         when ``None``.
@@ -41,6 +46,26 @@ class Drift(Element):
         self, energy: torch.Tensor, species: Species
     ) -> torch.Tensor:
         return drift_matrix(length=self.length, energy=energy, species=species)
+
+    def second_order_transfer_map(
+        self, energy: torch.Tensor, species: Species
+    ) -> torch.Tensor:
+        zero = torch.zeros_like(self.length)
+        T = base_ttensor(self.length, k1=zero, k2=zero, hx=zero, species=species, energy=energy)
+        return with_first_order(T, drift_matrix(self.length, energy, species))
+
+    def _track_drift_kick_drift(self, incoming: Beam) -> ParticleBeam:
+        """Exact nonlinear drift through the Bmad-X map."""
+        incoming = require_particle_beam(incoming)
+        mc2 = incoming.species.mass_eV
+        z, pz, p0c = bmadx.cheetah_to_bmad_z_pz(incoming.tau, incoming.p, incoming.energy, mc2)
+        x, y, z = bmadx.track_a_drift(
+            self.length, incoming.x, incoming.px, incoming.y, incoming.py, z, pz, p0c, mc2
+        )
+        tau, delta, ref_energy = bmadx.bmad_to_cheetah_z_pz(z, pz, p0c, mc2)
+        return dkd_outgoing(
+            incoming, (x, incoming.px, y, incoming.py, tau, delta), ref_energy, self.length
+        )
 
     @property
     def is_skippable(self) -> bool:

@@ -26,12 +26,56 @@ from cheetah_tpu_torch.utils.warnings import DirtyNameWarning, PhysicsWarning
 
 generate_unique_name = UniqueNameGenerator(prefix="unnamed_element")
 
-#: Tracking methods that are valid in the JAX package but belong to a later
-#: slice of the port, with that slice.
-_LATER_SLICE = {
-    "second_order": "the nonlinear-element slice (second-order T-tensors)",
-    "drift_kick_drift": "the nonlinear-element slice (Bmad-X drift-kick-drift)",
-}
+
+def second_order_moment_transport(
+    T: torch.Tensor, mu: torch.Tensor, cov: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    r"""Exact first and second moments of ``out_i = T_ijk p_j p_k`` for a
+    Gaussian ``p`` (Isserlis' theorem). With ``B_i = (T_i + T_i^T) / 2``:
+
+    .. math::
+        \mu'_i = \mu^T B_i \mu + \mathrm{tr}(B_i \Sigma), \qquad
+        \Sigma'_{il} = 2\,\mathrm{tr}(B_i \Sigma B_l \Sigma)
+                       + 4\,(B_i \mu)^T \Sigma (B_l \mu).
+
+    For a ``T`` that holds a linear map alone (in ``T[..., :, 6, :]``, with
+    ``p_6 = 1``) this is the congruence ``mu' = M mu``, ``cov' = M cov
+    M^T``. O(7^4) per instance, independent of the particle count.
+    """
+    B = 0.5 * (T + T.transpose(-1, -2))
+    mu_out = torch.einsum("...ijk,...j,...k->...i", B, mu, mu) + torch.einsum(
+        "...ijk,...jk->...i", B, cov
+    )
+    BS = torch.einsum("...ijk,...kl->...ijl", B, cov)  # B_i @ Sigma
+    Bmu = torch.einsum("...ijk,...k->...ij", B, mu)  # B_i @ mu
+    cov_out = 2.0 * torch.einsum("...ijk,...lkj->...il", BS, BS) + 4.0 * torch.einsum(
+        "...ij,...jk,...lk->...il", Bmu, cov, Bmu
+    )
+    return mu_out, cov_out
+
+
+def apply_second_order_map(T: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Apply a 7x7x7 second-order map: ``out_i = sum_jk T_ijk p_j p_k``.
+
+    Unbatched particles ``(N, 7)`` (the vectorised-lattice case): the
+    quadratic form factors through the instance-independent outer products
+    ``S[n, jk] = p_j p_k``, ``(N, 49)``, and the contraction is one matmul
+    ``(N, 49) @ (..., 49, 7)``. Batched particles: ``S`` would be 7 times the
+    particle array for every instance, so the contraction is unrolled over
+    the 7 output components, each a ``(..., N, 7) @ (..., 7, 7)`` matmul and
+    a multiply-reduce.
+    """
+    if p.ndim == 2:
+        S = (p[:, :, None] * p[:, None, :]).reshape(p.shape[0], 49)
+        T2 = T.reshape(*T.shape[:-3], 7, 49)
+        return S @ T2.transpose(-1, -2)
+    return torch.stack(
+        [
+            torch.sum((p @ T[..., i, :, :].transpose(-1, -2)) * p, dim=-1)
+            for i in range(7)
+        ],
+        dim=-1,
+    )
 
 
 class Element(nn.Module):
@@ -124,6 +168,13 @@ class Element(nn.Module):
         reference ``energy`` and ``species``."""
         raise NotImplementedError
 
+    def second_order_transfer_map(
+        self, energy: torch.Tensor, species: Species
+    ) -> torch.Tensor:
+        """The element's second-order 7x7x7 T-tensor ``T_ijk`` such that
+        ``out_i = sum_jk T_ijk in_j in_k``."""
+        raise NotImplementedError
+
     # ------------------------------------------------------------------
     # Tracking
     # ------------------------------------------------------------------
@@ -144,9 +195,14 @@ class Element(nn.Module):
         method = self.tracking_method
         if method == "linear":
             return self._track_first_order(incoming)
-        raise NotImplementedError(
-            f"Tracking method {method!r} of {type(self).__name__} {self.name!r} "
-            f"is not ported to PyTorch yet; it comes with {_LATER_SLICE[method]}."
+        if method == "second_order":
+            return self._track_second_order(incoming)
+        if method == "drift_kick_drift":
+            return self._track_drift_kick_drift(incoming)
+        raise ValueError(
+            f"Invalid tracking method {method}. For element of type "
+            f"{type(self).__name__}, supported methods are "
+            f"{self.supported_tracking_methods}."
         )
 
     def _track_first_order(self, incoming: Beam) -> Beam:
@@ -170,6 +226,18 @@ class Element(nn.Module):
             survival_probabilities=incoming.survival_probabilities,
             s=incoming.s + self.length,
             species=incoming.species,
+        )
+
+    def _track_second_order(self, incoming: Beam) -> Beam:
+        """Second-order tracking, ``out_i = sum_jk T_ijk in_j in_k``; a
+        :class:`ParameterBeam`'s Gaussian moments go through the quadratic
+        map exactly (:func:`second_order_moment_transport`)."""
+        T = self.second_order_transfer_map(incoming.energy, incoming.species)
+        return transport_second_order(T, incoming, self.length)
+
+    def _track_drift_kick_drift(self, incoming: Beam) -> Beam:
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support drift-kick-drift tracking."
         )
 
     # ------------------------------------------------------------------
@@ -202,6 +270,61 @@ class ZeroLengthMixin:
     @property
     def length(self) -> torch.Tensor:
         return next(self.buffers()).new_zeros(())
+
+
+def transport_second_order(T: torch.Tensor, incoming: Beam, length: torch.Tensor) -> Beam:
+    """The beam after the quadratic map ``T`` over ``length``: the moments'
+    Gaussian closure for a :class:`ParameterBeam`, the map applied to every
+    particle of a :class:`ParticleBeam`."""
+    if isinstance(incoming, ParameterBeam):
+        mu, cov = second_order_moment_transport(T, incoming.mu, incoming.cov)
+        return ParameterBeam(
+            mu,
+            cov,
+            incoming.energy,
+            total_charge=incoming.total_charge,
+            s=incoming.s + length,
+            species=incoming.species,
+        )
+    return ParticleBeam(
+        apply_second_order_map(T, incoming.particles),
+        incoming.energy,
+        particle_charges=incoming.particle_charges,
+        survival_probabilities=incoming.survival_probabilities,
+        s=incoming.s + length,
+        species=incoming.species,
+    )
+
+
+def dkd_outgoing(
+    incoming: ParticleBeam,
+    coordinates: tuple[torch.Tensor, ...],
+    ref_energy: torch.Tensor,
+    length: torch.Tensor,
+) -> ParticleBeam:
+    """The beam after a drift-kick-drift map that gave ``(x, px, y, py, tau,
+    delta)`` and the reference energy ``ref_energy``."""
+    coordinates = torch.broadcast_tensors(*coordinates)
+    return ParticleBeam(
+        torch.stack([*coordinates, torch.ones_like(coordinates[0])], dim=-1),
+        ref_energy,
+        particle_charges=incoming.particle_charges,
+        survival_probabilities=incoming.survival_probabilities,
+        s=incoming.s + length,
+        species=incoming.species,
+    )
+
+
+def require_particle_beam(incoming: Beam) -> ParticleBeam:
+    """``incoming``, which a drift-kick-drift map needs as a :class:`ParticleBeam`.
+
+    :raises TypeError: for any other beam.
+    """
+    if not isinstance(incoming, ParticleBeam):
+        raise TypeError(
+            "Drift-kick-drift tracking is currently only supported for `ParticleBeam`."
+        )
+    return incoming
 
 
 def identity_transfer_map(energy: torch.Tensor) -> torch.Tensor:

@@ -6,8 +6,11 @@ elements. Its ``track`` partitions the lattice into runs of consecutive
 O(run * 7^3)) and applies the fused map to the beam once (O(N * 7^2)).
 Elements are reachable as attributes by name.
 
-``track_moments`` collapses a ``ParticleBeam`` to its moments after the
-last element that must act on particles, and ``track_with_readings``
+A ``second_order`` element absorbs the linear runs next to it into its
+T-tensor (a :class:`_SecondOrderBracket`), so the bracket moves the
+particles with one quadratic map. ``track_moments`` collapses a
+``ParticleBeam`` to its moments after the last element that must act on
+particles, and ``track_with_readings``
 collects the readings of the active observers (screens, BPMs) along the
 way, tracking the stretches between them as fused runs.
 """
@@ -19,7 +22,11 @@ from typing import Any, Iterator, Literal
 import torch
 from torch import nn
 
-from cheetah_tpu_torch.accelerator.element import Element, beam_device
+from cheetah_tpu_torch.accelerator.element import (
+    Element,
+    beam_device,
+    transport_second_order,
+)
 from cheetah_tpu_torch.particles import Beam, ParticleBeam, Species
 from cheetah_tpu_torch.utils.device import check_module_device
 
@@ -70,11 +77,12 @@ class Segment(Element):
 
     @property
     def length(self) -> torch.Tensor:
-        lengths = [element.length for element in self.elements]
-        total = lengths[0]
-        for value in lengths[1:]:
-            total = total + value
-        return total
+        """The sum of the elements' lengths; 0 for an empty segment (a CPU
+        scalar, which adds to a tensor on any device)."""
+        total = None
+        for element in self.elements:
+            total = element.length if total is None else total + element.length
+        return torch.zeros(()) if total is None else total
 
     def first_order_transfer_map(
         self, energy: torch.Tensor, species: Species
@@ -114,10 +122,13 @@ class Segment(Element):
         instance instead of O(N * 7^2). For linear stretches the result is
         :meth:`track`'s sample moments up to float rounding.
 
-        The JAX package's ``second_order="closure"`` also moves moments
-        through ``second_order``-tracked elements by a Gaussian closure;
-        that tracking method is not ported yet, and such an element raises
-        ``NotImplementedError`` here.
+        With ``second_order="closure"`` (the default), ``second_order``
+        elements and their brackets move the moments too, by the Gaussian
+        closure of the quadratic map
+        (:func:`~cheetah_tpu_torch.accelerator.element.second_order_moment_transport`):
+        exact for the Gaussian that ``(mu, cov)`` describes, but not the
+        tracked particles' sample moments (their 3rd and 4th moments are
+        dropped). ``"particles"`` tracks particles through them instead.
 
         :param second_order: ``"closure"`` (default) or ``"particles"``.
         :return: A :class:`ParameterBeam` with the tracked moments (a
@@ -128,12 +139,9 @@ class Segment(Element):
         def moment_transportable(todo: Element) -> bool:
             if todo.is_skippable:
                 return True
-            if second_order == "closure" and _is_second_order_leaf(todo):
-                raise NotImplementedError(
-                    f"track_moments through the second_order element {todo.name!r} needs "
-                    "the Gaussian closure, which comes with the nonlinear-element slice."
-                )
-            return False
+            if second_order != "closure":
+                return False
+            return isinstance(todo, _SecondOrderBracket) or _is_second_order_leaf(todo)
 
         todos = self._plan()
         boundary = 0
@@ -170,8 +178,8 @@ class Segment(Element):
             return beam
 
         for element in self.elements:
-            # A Superimposed element joins this branch with the
-            # nonlinear-element slice, which ports it.
+            # A Superimposed element joins this branch with the slice
+            # that ports it.
             if isinstance(element, Segment):
                 if _contains_active_observer(element):
                     incoming = flush(incoming)
@@ -232,7 +240,9 @@ class Segment(Element):
 
     def _plan(self) -> list[Element]:
         """Partition the elements into fused skippable runs and individual
-        non-skippable elements."""
+        non-skippable elements, then fold the linear runs next to
+        ``second_order`` elements into their T-tensors
+        (:meth:`_fuse_second_order_brackets`)."""
         todos: list[Element] = []
         run: list[Element] = []
         for element in self.elements:
@@ -245,7 +255,47 @@ class Segment(Element):
             todos.append(element)
         if run:
             todos.append(Segment(run, sanitize_name=False))
-        return todos
+        return self._fuse_second_order_brackets(todos)
+
+    @staticmethod
+    def _fuse_second_order_brackets(todos: list[Element]) -> list[Element]:
+        """Fold skippable linear runs into adjacent second-order T-tensors.
+
+        With ``p_6 = 1``, ``out_i = T_ijk p_j p_k`` holds constant, linear
+        and quadratic terms, so a second-order map between two linear maps
+        is exactly a second-order map, ``T'_iab = R_il T_ljk M_ja M_kb``.
+        Greedy from the left: each second-order element takes the run before
+        it, and the run after it unless the todo after that run is itself
+        second-order (which takes that run as its own).
+        """
+        fused: list[Element] = []
+        index = 0
+
+        def is_run(todo: Element) -> bool:
+            return isinstance(todo, Segment) and todo.is_skippable
+
+        while index < len(todos):
+            todo = todos[index]
+            if _is_second_order_leaf(todo):
+                upstream: list[Element] = []
+                if fused and is_run(fused[-1]):
+                    upstream = list(fused.pop().elements)
+                downstream: list[Element] = []
+                if (
+                    index + 1 < len(todos)
+                    and is_run(todos[index + 1])
+                    and not (index + 2 < len(todos) and _is_second_order_leaf(todos[index + 2]))
+                ):
+                    downstream = list(todos[index + 1].elements)
+                    index += 1
+                if upstream or downstream:
+                    fused.append(_SecondOrderBracket(upstream, todo, downstream))
+                else:
+                    fused.append(todo)
+            else:
+                fused.append(todo)
+            index += 1
+        return fused
 
     @property
     def defining_features(self) -> list[str]:
@@ -275,3 +325,51 @@ def _contains_active_observer(element: Element) -> bool:
     if isinstance(element, Segment):
         return any(_contains_active_observer(child) for child in element.elements)
     return _is_active_observer(element)
+
+
+class _SecondOrderBracket(Element):
+    """A linear run, a ``second_order`` element and a linear run, tracked as
+    one quadratic map ``T'_iab = R_il T_ljk M_ja M_kb``: exactly the three
+    parts in sequence, up to float rounding, with one pass over the
+    particles instead of three. Made by :meth:`Segment._plan` only."""
+
+    def __init__(
+        self, upstream: list[Element], element: Element, downstream: list[Element]
+    ) -> None:
+        super().__init__()
+        self.upstream = nn.ModuleList(upstream)
+        self.element = element
+        self.downstream = nn.ModuleList(downstream)
+        self._init_element(f"{element.name}_bracket", False, None)
+
+    @property
+    def length(self) -> torch.Tensor:
+        total = self.element.length
+        for part in (*self.upstream, *self.downstream):
+            total = total + part.length
+        return total
+
+    @property
+    def is_skippable(self) -> bool:
+        return False
+
+    def fused_second_order_transfer_map(
+        self, energy: torch.Tensor, species: Species
+    ) -> torch.Tensor:
+        """The bracket's folded 7x7x7 tensor ``R_il T_ljk M_ja M_kb``."""
+        T = self.element.second_order_transfer_map(energy, species)
+        if len(self.upstream):
+            M = torch.eye(7, dtype=T.dtype, device=T.device)
+            for part in self.upstream:
+                M = part.first_order_transfer_map(energy, species) @ M
+            T = torch.einsum("...ijk,...ja,...kb->...iab", T, M, M)
+        if len(self.downstream):
+            R = torch.eye(7, dtype=T.dtype, device=T.device)
+            for part in self.downstream:
+                R = part.first_order_transfer_map(energy, species) @ R
+            T = torch.einsum("...il,...ljk->...ijk", R, T)
+        return T
+
+    def _track(self, incoming: Beam) -> Beam:
+        T = self.fused_second_order_transfer_map(incoming.energy, incoming.species)
+        return transport_second_order(T, incoming, self.length)

@@ -20,6 +20,7 @@ the port has one.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -29,6 +30,11 @@ from cheetah_tpu_torch.constants import elementary_charge, epsilon_0, speed_of_l
 from cheetah_tpu_torch.ops import cic_kernels
 from cheetah_tpu_torch.ops.cloud_in_cell import cloud_in_cell_charge_deposition
 from cheetah_tpu_torch.particles import ParticleBeam
+
+
+@functools.lru_cache(maxsize=None)
+def _momentum_columns(device: torch.device) -> torch.Tensor:
+    return torch.tensor([1, 3, 5], device=device)
 
 
 class SpaceChargeKick(Element):
@@ -165,11 +171,8 @@ class SpaceChargeKick(Element):
         charge_density = charge_grid * inv_cell_volume[..., None, None, None]
 
         nx, ny, nt = self.grid_shape
-        padded = charge_density.new_zeros(
-            (*charge_density.shape[:-3], 2 * nx, 2 * ny, 2 * nt)
-        )
-        padded[..., :nx, :ny, :nt] = charge_density
-        return padded
+        # Out of place (zeros after each axis), so that torch.func transforms it.
+        return torch.nn.functional.pad(charge_density, (0, nt, 0, ny, 0, nx))
 
     def _solve_poisson_equation(
         self,
@@ -295,9 +298,11 @@ class SpaceChargeKick(Element):
         (values,) = cic_kernels.differentiable_gather(grids, normalized, cic_kernels.VALUE)
         forces = values * elementary_charge  # (B, 3, N)
 
-        kick = torch.zeros_like(xp_coordinates)
-        kick[..., [1, 3, 5]] = (forces * dt[:, None, None]).transpose(1, 2)
-        xp_coordinates = xp_coordinates + kick
+        # The kick adds to the momenta (columns 1, 3, 5), out of place.
+        xp_coordinates = xp_coordinates.index_add(
+            -1, _momentum_columns(xp_coordinates.device),
+            (forces * dt[:, None, None]).transpose(1, 2),
+        )
 
         return ParticleBeam.from_xyz_pxpypz(
             xp_coordinates=xp_coordinates.reshape(*outgoing_vector_shape, n, 7),

@@ -23,12 +23,15 @@ ELEMENT_TYPES = {
     for name in (
         "Aperture",
         "BPM",
+        "Cavity",
+        "Dipole",
         "Drift",
         "HorizontalCorrector",
         "Marker",
         "Quadrupole",
         "Screen",
         "Segment",
+        "Sextupole",
         "SpaceChargeKick",
         "VerticalCorrector",
     )

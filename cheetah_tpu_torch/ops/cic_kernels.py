@@ -35,13 +35,17 @@ untiled kernels are counted in ``deposit_multi_3d.launches`` and
 own ``launches``.
 
 Gradients: :class:`GatherMulti` and :class:`DepositMulti` are the autograd
-closure of the pair (``pallas_cic.py:536-750``). Each backward calls the two
-Functions again, at the same or raised orders, so a backward, and a backward
-of a backward up to orders ``(1, 1, 1)``, runs on the kernels too. On a grid
-of the tiled pair each Function makes the plan of its positions once, in
-forward (:func:`~cheetah_tpu_torch.ops.cic_tiled.plan_tiles`), and hands it
-to the Functions its backward calls, so every launch of one node's backward
-and double backward reuses it.
+closure of the pair (``pallas_cic.py:536-750``), in the form ``torch.func``
+transforms: a ``backward`` (the transposes), a ``jvp`` (forward mode, so
+``torch.func.jvp``, ``jacfwd``, ``hessian`` and
+``torch.autograd.forward_ad``) and a ``vmap`` rule that folds the mapped
+dimension into the kernels' batch axis. Each rule calls the two Functions
+again, at the same or raised orders, so every transform and composition,
+up to orders ``(1, 1, 1)``, runs on the kernels too. On a grid of the tiled
+pair each Function makes the plan of its positions once, in forward
+(:func:`~cheetah_tpu_torch.ops.cic_tiled.plan_tiles`), and hands it to the
+Functions its rules call, so every launch of one node's backward, double
+backward and jvp reuses it.
 """
 
 from __future__ import annotations
@@ -65,6 +69,7 @@ from cheetah_tpu_torch.ops.cic_common import (
     orders_argument,
 )
 from cheetah_tpu_torch.ops.nvcc import CudaLibrary
+from cheetah_tpu_torch.utils.maths import presigned
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 LIBRARY = CudaLibrary(
@@ -330,8 +335,8 @@ def _position_grad(terms, like: torch.Tensor) -> torch.Tensor:
     )
 
 
-def _accumulate(terms: dict, axis: int, value: torch.Tensor) -> None:
-    terms[axis] = value if axis not in terms else terms[axis] + value
+def _accumulate(terms: dict, key, value: torch.Tensor) -> None:
+    terms[key] = value if key not in terms else terms[key] + value
 
 
 def _node_plan(plan, normalized: torch.Tensor, histogram_shape):
@@ -343,28 +348,66 @@ def _node_plan(plan, normalized: torch.Tensor, histogram_shape):
     return cic_tiled.plan_tiles(normalized.detach(), histogram_shape)
 
 
+class _PlanSlot:
+    """The tile plan of one autograd node. A Function's ``forward`` takes no
+    ``ctx`` in the ``torch.func`` form, so it leaves the plan it made here,
+    where ``setup_context``, which gets the same inputs, picks it up. Under
+    ``torch.func.vmap`` the folded call gets a slot of its own: its
+    positions are not the caller's."""
+
+    __slots__ = ("plan",)
+
+    def __init__(self, plan: cic_tiled.TilePlan | None = None) -> None:
+        self.plan = plan
+
+
+def _fold(tensor: torch.Tensor, dim: int | None, batch_size: int) -> torch.Tensor:
+    """Fold a vmapped dimension into the leading batch axis (an unmapped
+    tensor is repeated for every instance), as ``_fold_batch`` does
+    (``pallas_cic.py:713-718``)."""
+    if dim is None:
+        tensor = tensor.expand(batch_size, *tensor.shape)
+    else:
+        tensor = tensor.movedim(dim, 0)
+    return tensor.reshape(tensor.shape[0] * tensor.shape[1], *tensor.shape[2:])
+
+
+def _unfold(tensor: torch.Tensor, batch_size: int) -> torch.Tensor:
+    return tensor.reshape(batch_size, -1, *tensor.shape[1:])
+
+
+@presigned
 class GatherMulti(torch.autograd.Function):
     """:func:`gather_multi_3d` with gradients with respect to ``grids`` and
-    ``normalized``.
+    ``normalized``, in the form that ``torch.func`` transforms.
 
     Backward: the grids' gradient is the deposit of the output gradients at
     the same orders (the transpose, ``pallas_cic.py:617-635``); the
     positions' gradient along an axis is the gather at the orders raised on
     that axis times the output gradients, summed over components and
-    orders (the jvp, ``:570-614``, transposed). ``plan`` (tiled grids only)
-    is the tile plan of ``normalized``; made in forward when not given, it
-    serves every launch of the backward.
+    orders (the jvp, ``:570-614``, transposed). ``jvp``: the gather at the
+    deduplicated raised orders times the position tangent, plus the gather
+    of the grid tangent (``:570-614``). ``vmap``: the vmapped dimension is
+    folded into the kernels' leading batch axis (``:713-733``). Every rule
+    calls the two Functions again, so each transform and their compositions
+    run on the kernels. ``slot`` (tiled grids only) holds the tile plan of
+    ``normalized``; made in forward when not given, it serves every launch
+    of the node's rules.
     """
 
     @staticmethod
-    def forward(ctx, grids, normalized, orders, plan=None):
-        orders = check_orders(orders)
-        plan = _node_plan(plan, normalized, grids.shape[2:])
-        ctx.orders = orders
-        ctx.plan = plan
+    def forward(grids, normalized, orders, slot):
+        slot.plan = _node_plan(slot.plan, normalized, grids.shape[2:])
+        return gather_multi_3d(grids, normalized, orders, plan=slot.plan)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        grids, normalized, orders, slot = inputs
+        ctx.orders = check_orders(orders)
+        ctx.plan = slot.plan
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(grids, normalized)
-        return gather_multi_3d(grids, normalized, orders, plan=plan)
+        ctx.save_for_forward(grids, normalized)
 
     @staticmethod
     def backward(ctx, *grad_outs):
@@ -377,41 +420,87 @@ class GatherMulti(torch.autograd.Function):
             rows = torch.stack([grad for grad, _ in live], dim=1)
             grad_grids = DepositMulti.apply(
                 normalized, rows, tuple(grids.shape[2:]), tuple(order for _, order in live),
-                ctx.plan,
+                _PlanSlot(ctx.plan),
             )
         if ctx.needs_input_grad[1]:
             need = _unique(r for _, order in live for _, r in _raised(order))
             terms: dict[int, torch.Tensor] = {}
             if need:
-                raised = dict(zip(need, GatherMulti.apply(grids, normalized, need, ctx.plan)))
+                raised = dict(
+                    zip(need, GatherMulti.apply(grids, normalized, need, _PlanSlot(ctx.plan)))
+                )
                 for grad, order in live:
                     for axis, r in _raised(order):
                         _accumulate(terms, axis, (raised[r] * grad).sum(dim=1))
             grad_normalized = _position_grad(terms, normalized[..., 0])
         return grad_grids, grad_normalized, None, None
 
+    @staticmethod
+    def jvp(ctx, grids_dot, normalized_dot, *_):
+        grids, normalized = ctx.saved_tensors
+        orders = ctx.orders
+        terms: dict[int, torch.Tensor] = {}
+        if normalized_dot is not None:
+            need = _unique(r for order in orders for _, r in _raised(order))
+            if need:
+                raised = dict(
+                    zip(need, GatherMulti.apply(grids, normalized, need, _PlanSlot(ctx.plan)))
+                )
+                for index, order in enumerate(orders):
+                    for axis, r in _raised(order):
+                        _accumulate(
+                            terms, index, raised[r] * normalized_dot[..., axis].unsqueeze(1)
+                        )
+        if grids_dot is not None:
+            gathered = GatherMulti.apply(grids_dot, normalized, orders, _PlanSlot(ctx.plan))
+            for index, value in enumerate(gathered):
+                _accumulate(terms, index, value)
+        shape = (*grids.shape[:2], normalized.shape[1])
+        return tuple(
+            terms[index] if index in terms else grids.new_zeros(shape)
+            for index in range(len(orders))
+        )
 
+    @staticmethod
+    def vmap(info, in_dims, grids, normalized, orders, slot):
+        size = info.batch_size
+        outs = GatherMulti.apply(
+            _fold(grids, in_dims[0], size), _fold(normalized, in_dims[1], size), orders,
+            _PlanSlot(),
+        )
+        return tuple(_unfold(out, size) for out in outs), (0,) * len(outs)
+
+
+@presigned
 class DepositMulti(torch.autograd.Function):
     """:func:`deposit_multi_3d` with gradients with respect to
-    ``normalized`` and ``rows``.
+    ``normalized`` and ``rows``, in the form that ``torch.func`` transforms.
 
     Backward: the rows' gradient is the gather of the grid's gradient at
     the same orders (the transpose, ``pallas_cic.py:694-707``); the
     positions' gradient along an axis is the gather at the orders raised on
     that axis, weighted by the rows (the jvp, ``:654-691``, transposed).
-    Both come from one gather over the union of the orders. ``plan`` as for
+    Both come from one gather over the union of the orders. ``jvp``: one
+    deposit of the rows tangent at the original orders together with the
+    rows times the position tangent at the raised orders (``:654-691``),
+    rows of a repeated order added. ``vmap`` and ``slot`` as for
     :class:`GatherMulti`.
     """
 
     @staticmethod
-    def forward(ctx, normalized, rows, histogram_shape, orders, plan=None):
-        orders = check_orders(orders)
-        plan = _node_plan(plan, normalized, histogram_shape)
-        ctx.orders = orders
-        ctx.plan = plan
+    def forward(normalized, rows, histogram_shape, orders, slot):
+        slot.plan = _node_plan(slot.plan, normalized, histogram_shape)
+        return deposit_multi_3d(normalized, rows, histogram_shape, orders, plan=slot.plan)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        normalized, rows, histogram_shape, orders, slot = inputs
+        ctx.orders = check_orders(orders)
+        ctx.histogram_shape = tuple(histogram_shape)
+        ctx.plan = slot.plan
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(normalized, rows)
-        return deposit_multi_3d(normalized, rows, histogram_shape, orders, plan=plan)
+        ctx.save_for_forward(normalized, rows)
 
     @staticmethod
     def backward(ctx, grad):
@@ -425,7 +514,7 @@ class DepositMulti(torch.autograd.Function):
         want = _unique(want)
         if not want:
             return None, None, None, None, None
-        gathered = dict(zip(want, GatherMulti.apply(grad, normalized, want, ctx.plan)))
+        gathered = dict(zip(want, GatherMulti.apply(grad, normalized, want, _PlanSlot(ctx.plan))))
         grad_normalized = grad_rows = None
         if ctx.needs_input_grad[0]:
             terms: dict[int, torch.Tensor] = {}
@@ -437,13 +526,40 @@ class DepositMulti(torch.autograd.Function):
             grad_rows = torch.stack([gathered[order] for order in orders], dim=1)
         return grad_normalized, grad_rows, None, None, None
 
+    @staticmethod
+    def jvp(ctx, normalized_dot, rows_dot, *_):
+        normalized, rows = ctx.saved_tensors
+        blocks: dict[tuple[int, int, int], torch.Tensor] = {}
+        if rows_dot is not None:
+            for index, order in enumerate(ctx.orders):
+                _accumulate(blocks, order, rows_dot[:, index])
+        if normalized_dot is not None:
+            for index, order in enumerate(ctx.orders):
+                for axis, r in _raised(order):
+                    _accumulate(blocks, r, rows[:, index] * normalized_dot[..., axis].unsqueeze(1))
+        if not blocks:
+            return rows.new_zeros((rows.shape[0], rows.shape[2], *ctx.histogram_shape))
+        return DepositMulti.apply(
+            normalized, torch.stack(list(blocks.values()), dim=1), ctx.histogram_shape,
+            tuple(blocks), _PlanSlot(ctx.plan),
+        )
+
+    @staticmethod
+    def vmap(info, in_dims, normalized, rows, histogram_shape, orders, slot):
+        size = info.batch_size
+        out = DepositMulti.apply(
+            _fold(normalized, in_dims[0], size), _fold(rows, in_dims[1], size),
+            histogram_shape, orders, _PlanSlot(),
+        )
+        return _unfold(out, size), 0
+
 
 def differentiable_gather(
     grids: torch.Tensor, normalized: torch.Tensor, orders: Orders = VALUE
 ) -> tuple[torch.Tensor, ...]:
     """:func:`gather_multi_3d` that autograd differentiates on the kernels
     (counterpart of ``differentiable_pallas_gather``, ``pallas_cic.py:754``)."""
-    return GatherMulti.apply(grids, normalized, orders)
+    return GatherMulti.apply(grids, normalized, orders, _PlanSlot())
 
 
 def differentiable_deposit(
@@ -454,4 +570,4 @@ def differentiable_deposit(
 ) -> torch.Tensor:
     """:func:`deposit_multi_3d` that autograd differentiates on the kernels
     (counterpart of ``differentiable_pallas_deposit``, ``pallas_cic.py:775``)."""
-    return DepositMulti.apply(normalized, rows, histogram_shape, orders)
+    return DepositMulti.apply(normalized, rows, histogram_shape, orders, _PlanSlot())

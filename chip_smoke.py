@@ -22,7 +22,14 @@ with a ``ParameterBeam``, ``Segment.track_moments``, the AREABSCR1 screen
 read through ``track_with_readings`` (histogram, cloud-in-cell, KDE at
 binning 8 and on its window at binning 1, 100k particles on 2448 x 2040
 pixels) and the gradient of the screen's centroid, each against a float64
-run of the port, with the CIC kernels' launch counts (all 0).
+run of the port, with the CIC kernels' launch counts (all 0). Then the
+nonlinear slice, which runs no hand-written kernel either: BASELINE config
+3 (cavity, drift-kick-drift dipole, second-order sextupole) at 100k
+particles and its gradients with respect to k2, the dipole angle and the
+cavity's voltage and phase, against the same chain in float64 on the card
+and a float64 central difference; and ``torch.func`` (``jvp``, ``grad``,
+``vmap``) through the 32^3 space-charge kick, on the kernels and never on
+their plain versions.
 Every phase prints one JSON line. The last line is
 ``{"ok": true, "device": {...}}``; any failed check raises, so the script
 exits non-zero and prints no such line. It imports neither JAX nor the JAX
@@ -128,6 +135,38 @@ CENTROID_RTOL = 1e-4
 CENTROID_K1_GRAD_ATOL_PER_SIGMA = 1e-6
 CENTROID_ANGLE_GRAD_RTOL = 1e-4
 CENTROID_FD_RTOL = 1e-6
+# BASELINE config 3 (the nonlinear chain) on the card in float32 against
+# the same chain in float64 on the card, 100k particles. The JAX package's
+# own float32 run of the chain on the CPU reaches 8.3e-3 of tau's standard
+# deviation, and the port's 6.2e-3 (both against float64): x, px, y, py and
+# tau are held to 3e-2 of their float64 standard deviation. delta's error
+# is the Bmad round trip pz = (p - p0c) / p0c (a few float32 ulps of 1,
+# against a sigma_p of 1.8e-6), so p is held to 1e-6 absolute; the outgoing
+# energy to rtol 1e-6.
+CHAIN_STD_SHARE = 3e-2
+CHAIN_P_ATOL = 1e-6
+CHAIN_ENERGY_RTOL = 1e-6
+# The gradients of sigma_x: float32 against float64 on the card, and the
+# card's float64 gradient against an float64 central difference (step
+# chosen so that truncation and rounding both stay below 1e-7 of the
+# gradient on the CPU). The sextupole moves x by ~k2 L x^2 ~ 1e-7 m, the
+# size of float32's error of x after the dkd dipole (7e-8 m on the CPU), so
+# the float32 gradient with respect to k2 keeps about two digits (1.6% off on
+# the CPU): 5e-2; the others 1e-4 (2e-6 on the CPU).
+CHAIN_GRAD_CASES = {
+    # name: (element index, attribute, value, central-difference step)
+    "k2": (5, "k2", 60.0, 1.0),
+    "angle": (3, "angle", 0.15, 1e-6),
+    "voltage": (1, "voltage", 2e7, 1e2),
+    "phase": (1, "phase", 30.0, 1e-4),
+}
+CHAIN_GRAD_F32_RTOL = {"k2": 5e-2, "angle": 1e-4, "voltage": 1e-4, "phase": 1e-4}
+CHAIN_GRAD_FD_RTOL = 1e-6
+# torch.func through the 32^3 kick in float64 on the card: the jvp and the
+# gradient contracted with the same direction are the same derivative
+# computed two ways, and vmap over two beams the same kicks as two calls;
+# they differ by the order of atomic sums (rtol 1e-9).
+FUNC_RTOL = 1e-9
 
 
 def emit(phase: str, **fields) -> None:
@@ -210,7 +249,8 @@ KERNEL_FAMILIES = {
 def profile_path(label: str, fn, ms: float) -> dict:
     """Device time by kernel over one call of ``fn`` (``torch.profiler``), and
     the device's idle share against ``ms``, the call's CUDA-event time.
-    Returns the CIC kernels' device time and launches by family."""
+    Returns the profile line's fields (the CIC kernels' device time and
+    launches by family under ``cic_kernels``)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -235,20 +275,20 @@ def profile_path(label: str, fn, ms: float) -> dict:
         for family, pieces in KERNEL_FAMILIES.items()
         for members in [[e for e in kernels if any(piece in e.key for piece in pieces)]]
     }
-    emit(
-        "profile",
-        path=label,
-        event_ms=ms,
-        device_busy_ms=busy_ms,
-        idle_share=max(0.0, 1.0 - busy_ms / ms),
-        kernel_launches=sum(e.count for e in kernels),
-        cic_kernels=families,
-        top=[
+    fields = {
+        "path": label,
+        "event_ms": ms,
+        "device_busy_ms": busy_ms,
+        "idle_share": max(0.0, 1.0 - busy_ms / ms),
+        "kernel_launches": sum(e.count for e in kernels),
+        "cic_kernels": families,
+        "top": [
             {"kernel": e.key[:90], "ms": e.self_device_time_total / 1e3, "count": e.count}
             for e in top
         ],
-    )
-    return families
+    }
+    emit("profile", **fields)
+    return fields
 
 
 # The kernel wrappers, each with its own launch count: the untiled pair,
@@ -1236,7 +1276,9 @@ def phase_sc_grad(ctt, wrappers, grid_shape, uses_tiled: bool) -> tuple[dict, di
     fd_error = abs(fd - grad64.item()) / abs(grad64.item())
 
     ms = time_ms(lambda: _sc_value_and_grad(segment, beam, 0.1), runs=10, warmup=2)
-    families = profile_path(label, lambda: _sc_value_and_grad(segment, beam, 0.1), ms)
+    families = profile_path(
+        label, lambda: _sc_value_and_grad(segment, beam, 0.1), ms
+    )["cic_kernels"]
     emit(
         label,
         particles=NUM_PARTICLES, grid=list(grid_shape), dtype="float32", ms=ms,
@@ -1556,6 +1598,216 @@ def phase_grad_screen_centroid(ctt, wrappers) -> None:
     check(fd_angle_error <= CENTROID_FD_RTOL, f"angle FD off by {fd_angle_error}")
 
 
+def _nonlinear_chain(ctt, dtype, device="cuda"):
+    """BASELINE config 3 (``scripts/bench_all.py:379-410``): a cavity, a
+    drift-kick-drift dipole and a second-order sextupole between drifts."""
+    kw = {"dtype": dtype, "device": device}
+    return ctt.Segment(
+        [
+            ctt.Drift(0.2, **kw),
+            ctt.Cavity(1.0, voltage=2e7, phase=30.0, frequency=1.3e9, name="cav", **kw),
+            ctt.Drift(0.2, **kw),
+            ctt.Dipole(0.4, angle=0.15, tracking_method="drift_kick_drift", name="dip", **kw),
+            ctt.Drift(0.2, **kw),
+            ctt.Sextupole(0.2, k2=60.0, name="sext", **kw),
+            ctt.Drift(0.2, **kw),
+        ]
+    )
+
+
+def phase_nonlinear_chain(ctt, wrappers) -> None:
+    """Config 3 at 100k particles (the beam of ``bench_all.py:115-128``) in
+    float32 on the card, against the same chain in float64 on the card: each
+    coordinate's largest error against its float64 standard deviation (p
+    absolute), the outgoing energy, the plan (ending in the sextupole's
+    second-order bracket), CUDA-event and CUDA-graph times and a profile."""
+    num_particles = 100_000
+    beam = _bench_beam(ctt, num_particles, "cuda", torch.Generator(device="cuda").manual_seed(SEED))
+    chain = _nonlinear_chain(ctt, torch.float32)
+    plan = [type(todo).__name__ for todo in chain._plan()]
+    check(plan == ["Segment", "Cavity", "Segment", "Dipole", "_SecondOrderBracket"],
+          f"config 3 plan {plan}")
+    _reset_launches(wrappers)
+    out = chain.track(beam)
+    launches = _no_cic_launches(wrappers, "the nonlinear chain")
+    out64 = _nonlinear_chain(ctt, torch.float64).track(beam.to(dtype=torch.float64))
+    check(tuple(out.particles.shape) == (num_particles, 7), f"shape {tuple(out.particles.shape)}")
+    check(bool(torch.isfinite(out.particles).all()), "non-finite particles")
+    error = (out.particles.double() - out64.particles).abs().amax(dim=0)
+    std = out64.particles.std(dim=0)
+    shares = {name: (error[i] / std[i]).item() for i, name in enumerate(("x", "px", "y", "py", "tau"))}
+    p_error = error[5].item()
+    energy_error = abs(out.energy.double().item() - out64.energy.item()) / out64.energy.item()
+
+    def step():
+        return chain.track(beam).particles
+
+    ms = time_ms(step, runs=20)
+    profile = profile_path("nonlinear_chain", step, ms)
+    emit(
+        "nonlinear_chain",
+        particles=num_particles, elements=len(chain.elements), plan=plan, dtype="float32",
+        ms=ms, graph_ms=graph_ms(step), kernel_launches=profile["kernel_launches"],
+        idle_share=profile["idle_share"], cic_kernel_launches=launches,
+        max_err_over_f64_std=shares, p_max_abs_err=p_error, sigma_p_f64=std[5].item(),
+        energy=out.energy.item(), energy_rel_err=energy_error,
+    )
+    for name, share in shares.items():
+        check(share <= CHAIN_STD_SHARE, f"config 3 {name}: {share} of its std")
+    check(p_error <= CHAIN_P_ATOL, f"config 3 p off by {p_error}")
+    check(energy_error <= CHAIN_ENERGY_RTOL, f"config 3 energy off by {energy_error}")
+
+
+def _chain_grad(ctt, dtype, beam, index, attribute, value) -> float:
+    chain = _nonlinear_chain(ctt, dtype)
+    parameter = torch.tensor(value, dtype=dtype, device="cuda", requires_grad=True)
+    setattr(chain.elements[index], attribute, parameter)
+    (grad,) = torch.autograd.grad(chain.track(beam).sigma_x, parameter)
+    return grad.item()
+
+
+def phase_nonlinear_chain_grad(ctt, wrappers) -> None:
+    """d sigma_x / d (k2, dipole angle, cavity voltage, cavity phase) of
+    config 3 at 100k particles: float32 on the card against float64 on the
+    card, and the float64 gradient against a float64 central difference."""
+    num_particles = 100_000
+    beam = _bench_beam(ctt, num_particles, "cuda", torch.Generator(device="cuda").manual_seed(SEED))
+    beam64 = beam.to(dtype=torch.float64)
+    chain64 = _nonlinear_chain(ctt, torch.float64)
+    results = {}
+    _reset_launches(wrappers)
+    for name, (index, attribute, value, step) in CHAIN_GRAD_CASES.items():
+        grad32 = _chain_grad(ctt, torch.float32, beam, index, attribute, value)
+        grad64 = _chain_grad(ctt, torch.float64, beam64, index, attribute, value)
+        element = chain64.elements[index]
+
+        def sigma_x(v, element=element, attribute=attribute):
+            setattr(element, attribute, torch.tensor(v, dtype=torch.float64, device="cuda"))
+            return chain64.track(beam64).sigma_x.item()
+
+        with torch.no_grad():
+            fd = (sigma_x(value + step) - sigma_x(value - step)) / (2 * step)
+        setattr(element, attribute, torch.tensor(value, dtype=torch.float64, device="cuda"))
+        results[name] = {
+            "grad": grad32, "grad_card_f64": grad64, "finite_difference_f64": fd, "fd_step": step,
+            "rel_err_vs_f64": abs(grad32 - grad64) / abs(grad64),
+            "fd_rel_diff": abs(fd - grad64) / abs(grad64),
+        }
+    launches = _no_cic_launches(wrappers, "the nonlinear chain's gradients")
+
+    chain = _nonlinear_chain(ctt, torch.float32)
+    parameters = {}
+    for name, (index, attribute, value, _) in CHAIN_GRAD_CASES.items():
+        parameters[name] = torch.tensor(value, device="cuda", requires_grad=True)
+        setattr(chain.elements[index], attribute, parameters[name])
+
+    def value_and_grads():
+        value = chain.track(beam).sigma_x
+        return value.detach(), torch.autograd.grad(value, list(parameters.values()))
+
+    ms = time_ms(value_and_grads, runs=20)
+    profile = profile_path("nonlinear_chain_grad", value_and_grads, ms)
+    emit(
+        "nonlinear_chain_grad", particles=num_particles, dtype="float32", ms=ms,
+        kernel_launches=profile["kernel_launches"], idle_share=profile["idle_share"],
+        cic_kernel_launches=launches, grads=results,
+    )
+    for name, result in results.items():
+        check(result["rel_err_vs_f64"] <= CHAIN_GRAD_F32_RTOL[name],
+              f"d sigma_x / d {name}: float32 off by {result['rel_err_vs_f64']}")
+        check(result["fd_rel_diff"] <= CHAIN_GRAD_FD_RTOL,
+              f"d sigma_x / d {name}: finite difference off by {result['fd_rel_diff']}")
+
+
+class _PlainVersionsForbidden:
+    """Within the block, any call of a CIC kernel's plain version raises."""
+
+    def __init__(self, cic_kernels, cic_tiled):
+        self.patches = [
+            (module, name)
+            for module, names in (
+                (cic_kernels, ("deposit_multi_3d_reference", "gather_multi_3d_reference")),
+                (cic_tiled, ("deposit_multi_tiled_3d_reference",
+                             "gather_multi_tiled_3d_reference", "tile_plan")),
+            )
+            for name in names
+        ]
+        self.saved = []
+
+    def __enter__(self):
+        for module, name in self.patches:
+            self.saved.append(getattr(module, name))
+
+            def refuse(*args, name=name, **kwargs):
+                raise AssertionError(f"the plain version {name} ran on the card")
+
+            setattr(module, name, refuse)
+        return self
+
+    def __exit__(self, *exc):
+        for (module, name), original in zip(self.patches, self.saved):
+            setattr(module, name, original)
+        return False
+
+
+def phase_func_transforms(ctt, wrappers, cic_kernels, cic_tiled) -> None:
+    """``torch.func`` through the 32^3 space-charge kick on the card (float64,
+    100k particles): the jvp of sum(px^2) along a direction against the
+    reverse-mode gradient contracted with it, and ``vmap`` over two beams
+    against two calls; the kernels' launch counts rise, and a call of any
+    plain version would raise."""
+    num_particles = 100_000
+    beam = _bench_beam(
+        ctt, num_particles, "cuda", torch.Generator(device="cuda").manual_seed(SEED + 3)
+    ).to(dtype=torch.float64)
+    kick = ctt.SpaceChargeKick(0.2, grid_shape=(32, 32, 32), dtype=torch.float64, device="cuda")
+
+    def kicked(particles):
+        return kick.track(
+            ctt.ParticleBeam(particles, beam.energy, particle_charges=beam.particle_charges)
+        ).particles
+
+    def loss(particles):
+        return torch.sum(torch.square(kicked(particles)[..., 1]))
+
+    generator = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    particles = beam.particles
+    direction = torch.randn(particles.shape, generator=generator, dtype=torch.float64,
+                            device="cuda") * particles.std(dim=0)
+    direction[..., 6] = 0.0
+    with _PlainVersionsForbidden(cic_kernels, cic_tiled):
+        _reset_launches(wrappers)
+        _, jvp = torch.func.jvp(loss, (particles,), (direction,))
+        jvp_launches = _launches(wrappers)
+        _reset_launches(wrappers)
+        contracted = torch.sum(torch.func.grad(loss)(particles) * direction)
+        grad_launches = _launches(wrappers)
+        jvp_error = abs(jvp.item() - contracted.item()) / abs(contracted.item())
+
+        other = particles * 1.1
+        _reset_launches(wrappers)
+        mapped = torch.func.vmap(kicked)(torch.stack([particles, other]))
+        vmap_launches = _launches(wrappers)
+        separate = torch.stack([kicked(particles), kicked(other)])
+    kick_size = (separate - torch.stack([particles, other])).abs().amax().item()
+    vmap_error = (mapped - separate).abs().amax().item() / kick_size
+    emit(
+        "func_transforms", grid=[32, 32, 32], particles=num_particles, dtype="float64",
+        jvp=jvp.item(), grad_dot_direction=contracted.item(), jvp_rel_diff=jvp_error,
+        vmap_instances=2, vmap_max_diff_over_kick=vmap_error,
+        launches={"jvp": jvp_launches, "grad": grad_launches, "vmap": vmap_launches},
+        plain_versions_ran=0,
+    )
+    for label, launches in (("jvp", jvp_launches), ("grad", grad_launches),
+                            ("vmap", vmap_launches)):
+        check(launches["deposit_multi_3d"] > 0 and launches["gather_multi_3d"] > 0,
+              f"torch.func.{label} launched {launches}")
+        check(not any(launches[name] for name in TILED_WRAPPERS),
+              f"torch.func.{label} launched tiled kernels at 32^3: {launches}")
+    check(jvp_error <= FUNC_RTOL, f"jvp against the contracted gradient: {jvp_error}")
+    check(vmap_error <= FUNC_RTOL, f"vmap against two calls: {vmap_error}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; none is available.", file=sys.stderr)
@@ -1587,6 +1839,9 @@ def main() -> int:
     phase_env_moments(ctt, wrappers)
     phase_screen_readings(ctt, wrappers)
     phase_grad_screen_centroid(ctt, wrappers)
+    phase_nonlinear_chain(ctt, wrappers)
+    phase_nonlinear_chain_grad(ctt, wrappers)
+    phase_func_transforms(ctt, wrappers, cic_kernels, cic_tiled)
 
     def entry(name, source, replaces, measured, **extra):
         by_path = {"space_charge_segment": segment_launches[name],

@@ -7,8 +7,10 @@ in alternating runs, so that the host's load falls on both alike.
 Each round runs OLD, NEW, NEW, OLD, each in a fresh process that imports
 ``cheetah_tpu_torch`` from that root (and builds its kernels there at first
 use). A process times the ARES EA env step (4096 instances x 10k particles,
-float32) and the space-charge segment of ``scripts/bench_all.py:415-424``
-(1M particles, 32^3, float32) with CUDA events, one call per event window,
+float32), the same 4096 instances with a ``ParameterBeam`` (where the
+checkout has one) and the space-charge segment of
+``scripts/bench_all.py:415-424`` (1M particles, 32^3, float32) with CUDA
+events, one call per event window,
 times the host's span to enqueue one call on an idle card, and profiles
 five calls of each with ``torch.profiler`` for the device's busy time and
 the number of kernels a call launches, and ten with ``cProfile`` for the
@@ -141,6 +143,11 @@ def worker(root: str) -> None:
         "env_step": lambda: env.track(env_beam).sigma_x,
         "space_charge_segment": lambda: segment.track(sc_beam),
     }
+    if hasattr(ctt, "ParameterBeam"):
+        moments = ctt.ParameterBeam.from_twiss(
+            beta_x=5.0, emittance_x=2e-9, beta_y=3.0, emittance_y=2e-9, energy=1.54e8, **kw
+        )
+        paths["parameter_beam_env_step"] = lambda: env.track(moments).sigma_x
     result = {"root": root}
     for name, fn in paths.items():
         ms = _time_ms(torch, fn)
@@ -212,6 +219,12 @@ def main() -> int:
             print(json.dumps(line), flush=True)
             runs[root].append(line)
 
+    # The paths both checkouts time.
+    paths = [
+        path for path in runs[args.old][0]
+        if isinstance(runs[args.old][0][path], dict) and "ms" in runs[args.old][0][path]
+        and path in runs[args.new][0]
+    ]
     summary = {"nvidia_smi": smi}
     for label, root in (("old", args.old), ("new", args.new)):
         summary[label] = {
@@ -219,14 +232,14 @@ def main() -> int:
                 key: statistics.median(run[path][key] for run in runs[root])
                 for key in ("ms", "host_ms", "device_busy_ms", "kernels_per_call")
             }
-            for path in ("env_step", "space_charge_segment")
+            for path in paths
         }
     summary["new_over_old"] = {
         path: {
             key: summary["new"][path][key] / summary["old"][path][key]
             for key in ("ms", "host_ms", "device_busy_ms")
         }
-        for path in ("env_step", "space_charge_segment")
+        for path in paths
     }
     print(json.dumps(summary), flush=True)
     return 0

@@ -257,13 +257,22 @@ def test_track_moments_gradient_matches_track():
 
 
 def test_track_moments_refuses_second_order_closure():
+    """The Gaussian closure is ported: track_moments no longer refuses a
+    second_order element; it equals tracking the collapsed ParameterBeam,
+    and "particles" equals the tracked particles' moments."""
     segment = ctt.Segment(
         [ctt.Quadrupole(0.2, k1=3.0, tracking_method="second_order", dtype=F64, device=CPU)]
     )
     beam = ctt.ParticleBeam.from_twiss(num_particles=100, generator=torch.Generator(),
                                        dtype=F64, device=CPU)
-    with pytest.raises(NotImplementedError, match="closure"):
-        segment.track_moments(beam)
+    closure = segment.track_moments(beam)
+    expected = segment.track(beam.as_parameter_beam())
+    assert isinstance(closure, ctt.ParameterBeam)
+    np.testing.assert_allclose(closure.cov.numpy(), expected.cov.numpy(), rtol=1e-14, atol=0)
+    particles = segment.track_moments(beam, second_order="particles")
+    np.testing.assert_allclose(
+        particles.cov.numpy(), segment.track(beam).as_parameter_beam().cov.numpy(), rtol=1e-12
+    )
 
 
 def test_space_charge_kick_refuses_parameter_beam():

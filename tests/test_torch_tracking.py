@@ -8,6 +8,8 @@ different places; the stated tolerance follows from a 13-matrix product and
 the raw-moment variance in float32.
 """
 
+import warnings
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -172,14 +174,17 @@ def test_plan_fuses_skippable_runs_only():
 
 
 def test_unported_tracking_method_raises_not_warns():
+    """Both nonlinear tracking methods of a Drift are ported now: they track,
+    neither raising nor warning, and a beam of reference particles stays on
+    the axis."""
     kw = {"dtype": torch.float64, "device": CPU}
     beam = ctt.ParticleBeam(torch.zeros(4, 7, dtype=torch.float64), 1e8)
     for method in ("second_order", "drift_kick_drift"):
         drift = ctt.Drift(0.5, tracking_method=method, **kw)
-        with pytest.raises(NotImplementedError, match="nonlinear-element slice"):
-            drift.track(beam)
-        with pytest.raises(NotImplementedError):
-            ctt.Segment([ctt.Drift(0.1, **kw), drift]).track(beam)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            for outgoing in (drift.track(beam), ctt.Segment([ctt.Drift(0.1, **kw), drift]).track(beam)):
+                assert torch.equal(outgoing.particles[..., :6], beam.particles[..., :6])
 
 
 def test_segment_and_beam_on_different_devices_raise():
