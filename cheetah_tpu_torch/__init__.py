@@ -6,26 +6,37 @@ space-charge kick are CUDA kernels written for Hopper (``csrc/cic.cu``),
 built with nvcc at first use. The screens' readouts (histogram,
 cloud-in-cell, KDE) and the moment tracking of ``ParameterBeam`` are plain
 PyTorch, as they are XLA in the JAX package, and so are the nonlinear
-elements (Cavity, Dipole, Sextupole; second-order T-tensors and Bmad-X
-drift-kick-drift tracking). Every autograd Function of the package works
-under ``torch.func`` (``grad``, ``jvp``, ``jacfwd``, ``hessian``, ``vmap``).
+elements (Cavity, Dipole, RBend, Sextupole, the transverse deflecting
+cavity; second-order T-tensors and Bmad-X drift-kick-drift tracking), the
+remaining linear elements (Solenoid, Undulator, CombinedCorrector,
+CustomTransferMap, Superimposed) and the LatticeJSON format that loads
+the whole ARES linear accelerator (``lattices.ares_stage3``). Every autograd
+Function of the package works under ``torch.func`` (``grad``, ``jvp``,
+``jacfwd``, ``hessian``, ``vmap``).
 """
 
-from cheetah_tpu_torch import lattices
+from cheetah_tpu_torch import latticejson, lattices
 from cheetah_tpu_torch.accelerator import (
     BPM,
     Aperture,
     Cavity,
+    CombinedCorrector,
+    CustomTransferMap,
     Dipole,
     Drift,
     Element,
     HorizontalCorrector,
     Marker,
     Quadrupole,
+    RBend,
     Screen,
     Segment,
     Sextupole,
+    Solenoid,
     SpaceChargeKick,
+    Superimposed,
+    TransverseDeflectingCavity,
+    Undulator,
     VerticalCorrector,
 )
 from cheetah_tpu_torch.particles import Beam, ParameterBeam, ParticleBeam, Species
@@ -35,6 +46,8 @@ __all__ = [
     "BPM",
     "Beam",
     "Cavity",
+    "CombinedCorrector",
+    "CustomTransferMap",
     "Dipole",
     "Drift",
     "Element",
@@ -43,11 +56,17 @@ __all__ = [
     "ParameterBeam",
     "ParticleBeam",
     "Quadrupole",
+    "RBend",
     "Screen",
     "Segment",
     "Sextupole",
+    "Solenoid",
     "SpaceChargeKick",
     "Species",
+    "Superimposed",
+    "TransverseDeflectingCavity",
+    "Undulator",
     "VerticalCorrector",
+    "latticejson",
     "lattices",
 ]

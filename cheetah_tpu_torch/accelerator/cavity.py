@@ -13,6 +13,7 @@ from cheetah_tpu_torch.constants import speed_of_light
 from cheetah_tpu_torch.ops.transfer_maps import matrix7, with_entries
 from cheetah_tpu_torch.particles import Beam, ParameterBeam, ParticleBeam
 from cheetah_tpu_torch.particles.species import Species
+from cheetah_tpu_torch.utils.device import is_transformed
 from cheetah_tpu_torch.utils.maths import log1pdiv
 from cheetah_tpu_torch.utils.physics import compute_relativistic_factors
 from cheetah_tpu_torch.utils.warnings import PhysicsWarning
@@ -20,12 +21,6 @@ from cheetah_tpu_torch.utils.warnings import PhysicsWarning
 
 def _safe(x: torch.Tensor, bad: torch.Tensor) -> torch.Tensor:
     return torch.where(bad, torch.ones_like(x), x)
-
-
-def _is_transformed(tensor: torch.Tensor) -> bool:
-    """Whether ``tensor`` is wrapped by a ``torch.func`` transform (vmap,
-    grad, jvp), whose values cannot be read on the host."""
-    return torch._C._functorch.is_functorch_wrapped_tensor(tensor)
 
 
 def _with_longitudinal(
@@ -119,7 +114,7 @@ class Cavity(Element):
         and a transform's arguments are not read (as the JAX package leaves
         traced values alone)."""
         voltage, phase = self.voltage, self.phase
-        if _is_transformed(voltage) or _is_transformed(phase):
+        if is_transformed(voltage) or is_transformed(phase):
             self._voltage_is_off = False
             return
         voltage, phase = voltage.detach().cpu(), phase.detach().cpu()

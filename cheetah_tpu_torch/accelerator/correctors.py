@@ -1,8 +1,7 @@
-"""Horizontal and vertical corrector magnets (counterpart of the H/V
-correctors in ``cheetah_tpu/accelerator/correctors.py``).
+"""Corrector magnets (counterpart of ``cheetah_tpu/accelerator/correctors.py``).
 
 A corrector is a drift with a thin kick applied through the affine (7th)
-column of the transfer map.
+column of the transfer map: horizontal, vertical, or both at once.
 """
 
 from __future__ import annotations
@@ -68,3 +67,51 @@ class VerticalCorrector(_Corrector):
     """
 
     _kick_row = 3
+
+
+class CombinedCorrector(Element):
+    """Corrector magnet kicking in both planes: drift plus thin horizontal
+    and vertical kicks.
+
+    :param length: Length in m.
+    :param horizontal_angle: Horizontal kick angle in rad.
+    :param vertical_angle: Vertical kick angle in rad.
+    :param name: Unique identifier of the element.
+    :param device: Device for parameters given as Python numbers; the GPU
+        when ``None``.
+    """
+
+    def __init__(
+        self,
+        length: torch.Tensor | float,
+        horizontal_angle: torch.Tensor | float | None = None,
+        vertical_angle: torch.Tensor | float | None = None,
+        name: str | None = None,
+        sanitize_name: bool | None = None,
+        metadata: dict | None = None,
+        dtype: torch.dtype | None = None,
+        device: torch.device | str | None = None,
+    ) -> None:
+        super().__init__()
+        self._register_parameters(
+            ("length", length),
+            dtype,
+            device,
+            horizontal_angle=horizontal_angle if horizontal_angle is not None else 0.0,
+            vertical_angle=vertical_angle if vertical_angle is not None else 0.0,
+        )
+        self._init_element(name, sanitize_name, metadata)
+
+    def first_order_transfer_map(
+        self, energy: torch.Tensor, species: Species
+    ) -> torch.Tensor:
+        tm = drift_matrix(self.length, energy, species)
+        return with_entries(tm, {(1, 6): self.horizontal_angle, (3, 6): self.vertical_angle})
+
+    @property
+    def is_skippable(self) -> bool:
+        return True
+
+    @property
+    def defining_features(self) -> list[str]:
+        return super().defining_features + ["length", "horizontal_angle", "vertical_angle"]

@@ -87,7 +87,7 @@ class Element(nn.Module):
 
     def __init__(self) -> None:
         super().__init__()
-        self.tracking_method = "linear"
+        self.tracking_method = self.supported_tracking_methods[0]
 
     def _register_parameters(
         self,

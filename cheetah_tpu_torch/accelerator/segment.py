@@ -27,6 +27,7 @@ from cheetah_tpu_torch.accelerator.element import (
     beam_device,
     transport_second_order,
 )
+from cheetah_tpu_torch.accelerator.superimposed import Superimposed
 from cheetah_tpu_torch.particles import Beam, ParticleBeam, Species
 from cheetah_tpu_torch.utils.device import check_module_device
 
@@ -178,12 +179,13 @@ class Segment(Element):
             return beam
 
         for element in self.elements:
-            # A Superimposed element joins this branch with the slice
-            # that ports it.
-            if isinstance(element, Segment):
+            if isinstance(element, (Segment, Superimposed)):
                 if _contains_active_observer(element):
                     incoming = flush(incoming)
-                    incoming, sub_readings = element.track_with_readings(incoming)
+                    sub_segment = (
+                        element if isinstance(element, Segment) else element._segment()
+                    )
+                    incoming, sub_readings = sub_segment.track_with_readings(incoming)
                     readings.update(sub_readings)
                 else:
                     pending.append(element)
@@ -297,6 +299,57 @@ class Segment(Element):
             index += 1
         return fused
 
+    def set_attrs_on_every_element(
+        self,
+        filter_type: type[Element] | tuple[type[Element], ...] | None = None,
+        is_recursive: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        """Set the attributes ``kwargs`` on every element of the segment, or
+        on every element of ``filter_type`` only.
+
+        :param filter_type: Element type (or tuple of types) to change;
+            every element when ``None``, nested segments included.
+        :param is_recursive: Whether to descend into nested segments that
+            ``filter_type`` does not select.
+        """
+        for element in self.elements:
+            if filter_type is None or isinstance(element, filter_type):
+                for key, value in kwargs.items():
+                    setattr(element, key, value)
+            elif is_recursive and isinstance(element, Segment):
+                element.set_attrs_on_every_element(
+                    filter_type=filter_type, is_recursive=True, **kwargs
+                )
+
+    @classmethod
+    def from_lattice_json(
+        cls,
+        filepath: str,
+        dtype: torch.dtype | None = None,
+        device: torch.device | str | None = None,
+    ) -> "Segment":
+        """Load a lattice from a LatticeJSON file.
+
+        :param dtype: dtype of the physical parameters; torch's default
+            when ``None``.
+        :param device: Device of the lattice; the GPU when ``None``.
+        """
+        from cheetah_tpu_torch import latticejson
+
+        return latticejson.load_cheetah_model(filepath, dtype=dtype, device=device)
+
+    def to_lattice_json(
+        self,
+        filepath: str,
+        title: str | None = None,
+        info: str = "This is a placeholder lattice description",
+    ) -> None:
+        """Save this lattice to a LatticeJSON file."""
+        from cheetah_tpu_torch import latticejson
+
+        latticejson.save_cheetah_model(self, filepath, title, info)
+
     @property
     def defining_features(self) -> list[str]:
         return super().defining_features + ["elements"]
@@ -324,6 +377,8 @@ def _contains_active_observer(element: Element) -> bool:
     :meth:`Segment.track_with_readings` must stop at."""
     if isinstance(element, Segment):
         return any(_contains_active_observer(child) for child in element.elements)
+    if isinstance(element, Superimposed):
+        return _contains_active_observer(element._segment())
     return _is_active_observer(element)
 
 

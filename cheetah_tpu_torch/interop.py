@@ -17,24 +17,9 @@ from cheetah_tpu_torch import accelerator
 from cheetah_tpu_torch.particles import ParameterBeam, ParticleBeam, Species
 from cheetah_tpu_torch.utils.device import resolve_device
 
-#: Element types that :func:`segment_from_numpy` can build.
+#: Element types that :func:`segment_from_numpy` can build: every one.
 ELEMENT_TYPES = {
-    name: getattr(accelerator, name)
-    for name in (
-        "Aperture",
-        "BPM",
-        "Cavity",
-        "Dipole",
-        "Drift",
-        "HorizontalCorrector",
-        "Marker",
-        "Quadrupole",
-        "Screen",
-        "Segment",
-        "Sextupole",
-        "SpaceChargeKick",
-        "VerticalCorrector",
-    )
+    name: getattr(accelerator, name) for name in accelerator.__all__ if name != "Element"
 }
 
 
@@ -42,9 +27,8 @@ def _element_from_dict(spec: dict[str, Any], device: torch.device):
     spec = dict(spec)
     type_name = spec.pop("type")
     if type_name not in ELEMENT_TYPES:
-        raise NotImplementedError(
-            f"Element type {type_name!r} is not ported yet; ported types are "
-            f"{sorted(ELEMENT_TYPES)}."
+        raise ValueError(
+            f"Unknown element type {type_name!r}; the types are {sorted(ELEMENT_TYPES)}."
         )
     if type_name == "Segment":
         return accelerator.Segment(
@@ -52,10 +36,14 @@ def _element_from_dict(spec: dict[str, Any], device: torch.device):
             sanitize_name=False,
             **spec,
         )
-    kwargs = {
-        key: torch.tensor(value, device=device) if isinstance(value, np.ndarray) else value
-        for key, value in spec.items()
-    }
+    kwargs = {}
+    for key, value in spec.items():
+        if isinstance(value, np.ndarray):
+            value = torch.tensor(value, device=device)
+        elif isinstance(value, dict) and "type" in value:
+            # An element that is a feature of this one (Superimposed's two).
+            value = _element_from_dict(value, device)
+        kwargs[key] = value
     return ELEMENT_TYPES[type_name](sanitize_name=False, device=device, **kwargs)
 
 
@@ -72,7 +60,8 @@ def segment_from_numpy(
         (``tracking_method``, ``grid_shape``, ``resolution``, ``method``,
         ``is_active``, ...), all under the
         constructor's keyword names. A ``"Segment"`` holds its children
-        under ``"elements"``.
+        under ``"elements"``; an element-valued feature
+        (``Superimposed.base_element``) is such a dict itself.
     :param device: Device of the lattice; the GPU when ``None``. The arrays
         keep their dtypes.
     """

@@ -2,10 +2,13 @@
 
 The ARES Experimental Area (EA) subcell is the section from AREASOLA1 to
 AREABSCR1 of the ARES accelerator at DESY: drifts, three quadrupoles and two
-corrector coils, ending at the AREABSCR1 screen.
+corrector coils, ending at the AREABSCR1 screen. ``ares_stage3`` is the
+whole ARES linear accelerator, read from the package's own LatticeJSON.
 """
 
 from __future__ import annotations
+
+import pathlib
 
 import torch
 
@@ -61,3 +64,19 @@ def ares_ea_subcell(
         ),
     ]
     return Segment(elements, name="ARES_EA")
+
+
+def ares_stage3(
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str | None = None,
+) -> Segment:
+    """The complete 195-element ARES linear accelerator (stage 3) at DESY,
+    from ``resources/ares_stage3.json`` (converted from the public
+    ``ARESlatticeStage3v1_9`` Ocelot description). Its magnets are at zero
+    strength, its 14 screens and 8 BPMs inactive, and its 3 apertures
+    active with infinite openings.
+
+    :param device: Device of the lattice parameters; the GPU when ``None``.
+    """
+    path = pathlib.Path(__file__).parent / "resources" / "ares_stage3.json"
+    return Segment.from_lattice_json(str(path), dtype=dtype, device=device)

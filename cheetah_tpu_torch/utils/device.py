@@ -83,6 +83,12 @@ def infer_dtype_device(
     return dtype, resolve_device(device)
 
 
+def is_transformed(tensor: torch.Tensor) -> bool:
+    """Whether ``tensor`` is wrapped by a ``torch.func`` transform (vmap,
+    grad, jvp), whose values cannot be read on the host."""
+    return torch._C._functorch.is_functorch_wrapped_tensor(tensor)
+
+
 def check_module_device(module: torch.nn.Module, device: torch.device) -> None:
     """Raise if any buffer of ``module`` lies on another device than ``device``.
 

@@ -29,7 +29,15 @@ particles and its gradients with respect to k2, the dipole angle and the
 cavity's voltage and phase, against the same chain in float64 on the card
 and a float64 central difference; and ``torch.func`` (``jvp``, ``grad``,
 ``vmap``) through the 32^3 space-charge kick, on the kernels and never on
-their plain versions.
+their plain versions. Last the seventh slice, no hand-written kernel
+either: the full ARES stage-3 lattice (``lattices.ares_stage3``, 195
+elements) at 100k particles in linear, second-order and drift-kick-drift
+mode and with a ``ParameterBeam``, timed eagerly and by CUDA graph with
+its launches and idle share, checked with seeded magnets against the
+port's float64 CPU run, with the gradient of sigma_x by a quadrupole's k1;
+and the remaining elements (Solenoid, Undulator, CombinedCorrector, RBend
+in three methods, the transverse deflecting cavity, a merged
+CustomTransferMap, a Superimposed BPM) against the same float64 run.
 Every phase prints one JSON line. The last line is
 ``{"ok": true, "device": {...}}``; any failed check raises, so the script
 exits non-zero and prints no such line. It imports neither JAX nor the JAX
@@ -48,7 +56,9 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
+import numpy as np
 import torch
 
 #: Peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s and float32
@@ -167,6 +177,42 @@ CHAIN_GRAD_FD_RTOL = 1e-6
 # computed two ways, and vmap over two beams the same kicks as two calls;
 # they differ by the order of atomic sums (rtol 1e-9).
 FUNC_RTOL = 1e-9
+# The ARES stage-3 lattice (lattices.ares_stage3, 195 elements) at 100k
+# particles on the card in float32, against the port's float64 run on the
+# CPU. Its vendored magnets are at zero strength, so the accuracy runs set
+# them from a numpy Generator (SEED): quadrupole k1 uniform in +-5 1/m^2,
+# solenoid k in +-1 1/m, corrector angles in +-1e-4 rad. At these strengths
+# the lattice is not stable: the beam grows to ~0.1-0.2 m rms, and in
+# drift-kick-drift mode the f64 run sends one tail particle out of the
+# Bmad-X maps' domain (|px| > 1 + pz, non-finite in both packages). That
+# mode checks that the card loses exactly the same particles and holds the
+# others to the limits. sigma_x and sigma_y: linear and ParameterBeam
+# within rtol 1e-4 (7 fused maps of up to 40 elements each and a
+# raw-moment variance in float32; 1.2e-6 and 1.8e-6 on the CPU), second
+# order within 1e-3 (111 folded T-tensors, each a 7x7x7 sandwich in
+# float32; 1.0e-5 on the CPU). Drift-kick-drift as the nonlinear chain
+# (x, px, y, py, tau within 3e-2 of their float64 standard deviation, p
+# within 1e-6 absolute; 3.8e-3 and 1.6e-7 on the CPU). The gradient of
+# sigma_x by AREAMQZM1's k1 (linear): float32 within 1e-3 of the float64
+# CPU run (5.9e-6 on the CPU), and the card's float64 gradient within 1e-6
+# of a float64 central difference (step 1e-5 of a k1 of 1.37 1/m^2; 9e-10
+# on the CPU).
+STAGE3_K1_RANGE = 5.0
+STAGE3_SOLENOID_RANGE = 1.0
+STAGE3_ANGLE_RANGE = 1e-4
+STAGE3_SIGMA_RTOL = {"linear": 1e-4, "second_order": 1e-3, "parameter_beam": 1e-4}
+STAGE3_GRAD_F32_RTOL = 1e-3
+STAGE3_FD_STEP = 1e-5
+STAGE3_FD_RTOL = 1e-6
+# The new elements at 100k particles on the card in float32 against the
+# port's float64 CPU run, each coordinate's largest error over its float64
+# standard deviation. One linear or second-order map rounds each particle a
+# few float32 ulps of its largest coordinate, ~1e-6 of the standard
+# deviation for a Gaussian's 5-sigma tails: 1e-4. The drift-kick-drift maps
+# (RBend, the transverse deflecting cavity) as the nonlinear chain. The
+# BPM's reading (the centroid) within 1e-4 of the beam's size.
+NEW_ELEMENT_STD_SHARE = 1e-4
+BPM_READING_TOLERANCE = 1e-4
 
 
 def emit(phase: str, **fields) -> None:
@@ -1808,6 +1854,290 @@ def phase_func_transforms(ctt, wrappers, cic_kernels, cic_tiled) -> None:
     check(vmap_error <= FUNC_RTOL, f"vmap against two calls: {vmap_error}")
 
 
+
+# ---------------------------------------------------------------------------
+# The ARES stage-3 lattice and the remaining elements (no hand-written kernel)
+# ---------------------------------------------------------------------------
+
+STAGE3_MODES = ("linear", "second_order", "drift_kick_drift", "parameter_beam")
+
+
+def _set_mode(segment, mode: str) -> None:
+    """Every element to ``mode`` with ``num_steps=5``, as the reference's
+    benchmark sets it (``tests/test_full_ares.py:154-161``); elements without
+    the method keep ``"linear"`` with a warning."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        segment.set_attrs_on_every_element(tracking_method=mode, num_steps=5)
+
+
+def _stage3(dtype, device="cuda", mode="linear", seeded=False):
+    """``lattices.ares_stage3`` in ``mode``; with ``seeded``, its quadrupoles,
+    solenoids and correctors set from a numpy Generator (SEED), in the
+    lattice's order."""
+    from cheetah_tpu_torch.lattices import ares_stage3
+
+    segment = ares_stage3(dtype, device=device)
+    if seeded:
+        rng = np.random.default_rng(SEED)
+        settings = {
+            "Quadrupole": ("k1", iter(rng.uniform(-STAGE3_K1_RANGE, STAGE3_K1_RANGE, 13))),
+            "Solenoid": ("k", iter(rng.uniform(-STAGE3_SOLENOID_RANGE, STAGE3_SOLENOID_RANGE, 2))),
+            "corrector": ("angle", iter(rng.uniform(-STAGE3_ANGLE_RANGE, STAGE3_ANGLE_RANGE, 30))),
+        }
+        for element in segment.elements:
+            kind = type(element).__name__
+            kind = "corrector" if kind in ("HorizontalCorrector", "VerticalCorrector") else kind
+            if kind in settings:
+                attribute, values = settings[kind]
+                setattr(element, attribute, float(next(values)))
+    _set_mode(segment, "linear" if mode == "parameter_beam" else mode)
+    return segment
+
+
+def _stage3_beams(ctt):
+    """The 100k-particle float32 beam of ``scripts/bench_all.py:115-128``
+    (seed SEED) and the ParameterBeam of the same Twiss parameters."""
+    beam = _bench_beam(ctt, 100_000, "cuda", torch.Generator(device="cuda").manual_seed(SEED))
+    parameter_beam = ctt.ParameterBeam.from_twiss(
+        beta_x=5.0, alpha_x=-1.0, emittance_x=2e-9, beta_y=3.0, alpha_y=0.5, emittance_y=2e-9,
+        energy=1.54e8, dtype=torch.float32, device="cuda",
+    )
+    return beam, parameter_beam
+
+
+def _std_shares(out, out64, rows=None) -> tuple[dict, float]:
+    """Each coordinate's largest error over its float64 standard deviation,
+    and p's largest absolute error, over the particles ``rows`` (all when
+    ``None``)."""
+    actual, expected = out.particles.detach().double().cpu(), out64.particles.detach().cpu()
+    if rows is not None:
+        actual, expected = actual[rows], expected[rows]
+    error = (actual - expected).abs().amax(dim=-2)
+    std = expected.std(dim=-2)
+    names = ("x", "px", "y", "py", "tau", "p")
+    return {name: (error[i] / std[i]).item() for i, name in enumerate(names)}, error[5].item()
+
+
+def _check_shares(label: str, shares: dict, p_error: float, drift_kick_drift: bool) -> None:
+    """A linear or second-order map holds every coordinate to
+    NEW_ELEMENT_STD_SHARE of its std; a drift-kick-drift map x to tau as the
+    nonlinear chain and p absolutely (the Bmad round trip)."""
+    for name, share in shares.items():
+        if drift_kick_drift and name == "p":
+            check(p_error <= CHAIN_P_ATOL, f"{label} p off by {p_error}")
+        else:
+            limit = CHAIN_STD_SHARE if drift_kick_drift else NEW_ELEMENT_STD_SHARE
+            check(share <= limit, f"{label} {name}: {share} of its std")
+
+
+def phase_ares_stage3(ctt, wrappers) -> None:
+    """The full ARES stage-3 lattice (195 elements) at 100k particles in
+    float32, as the reference's benchmark runs it: a ParticleBeam in linear,
+    second-order and drift-kick-drift mode and a ParameterBeam in linear
+    mode. Timed on the vendored lattice (CUDA events eagerly, a CUDA graph,
+    a profile for launches and idle share); checked with its magnets set
+    from SEED against the port's float64 run on the CPU; and the gradient of
+    sigma_x by AREAMQZM1's k1 against float64 on the CPU and an float64
+    central difference on the card."""
+    beam, parameter_beam = _stage3_beams(ctt)
+    beam64 = beam.to("cpu", torch.float64)
+    parameter64 = parameter_beam.to("cpu", torch.float64)
+    incoming = {mode: beam for mode in STAGE3_MODES}
+    incoming["parameter_beam"] = parameter_beam
+    lattice = _stage3(torch.float32)
+    timings, accuracy = {}, {}
+    _reset_launches(wrappers)
+    with warnings.catch_warnings():
+        # The apertures let a ParameterBeam through with a warning.
+        warnings.simplefilter("ignore")
+        for mode in STAGE3_MODES:
+            _set_mode(lattice, "linear" if mode == "parameter_beam" else mode)
+
+            def step(mode=mode):
+                out = lattice.track(incoming[mode])
+                return out.sigma_x if mode == "parameter_beam" else out.particles
+
+            # The second-order lattice dispatches ~116k operators a call.
+            heavy = mode == "second_order"
+            ms = time_ms(step, runs=5 if heavy else 20, warmup=1 if heavy else 3)
+            profile = profile_path(f"ares_stage3_{mode}", step, ms)
+            timings[mode] = {
+                "plan_entries": len(lattice._plan()), "ms": ms,
+                "graph_ms": graph_ms(step, calls=1 if heavy else 10, runs=5 if heavy else 20),
+                "kernel_launches": profile["kernel_launches"],
+                "device_busy_ms": profile["device_busy_ms"], "idle_share": profile["idle_share"],
+            }
+
+        for mode in STAGE3_MODES:
+            out = _stage3(torch.float32, "cuda", mode, seeded=True).track(incoming[mode])
+            out64 = _stage3(torch.float64, "cpu", mode, seeded=True).track(
+                parameter64 if mode == "parameter_beam" else beam64
+            )
+            sigma_errors = {
+                name: abs(getattr(out, name).double().item() / getattr(out64, name).item() - 1)
+                for name in ("sigma_x", "sigma_y")
+            }
+            if mode == "drift_kick_drift":
+                lost64 = ~torch.isfinite(out64.particles).all(dim=-1)
+                lost = ~torch.isfinite(out.particles).all(dim=-1).cpu()
+                shares, p_error = _std_shares(out, out64, ~lost64)
+                accuracy[mode] = {
+                    "max_err_over_f64_std": shares, "p_max_abs_err": p_error,
+                    "lost_f64": int(lost64.sum()), "lost_card": int(lost.sum()),
+                    "same_particles_lost": bool(torch.equal(lost, lost64)),
+                }
+            else:
+                finite = bool(torch.isfinite(out.mu if mode == "parameter_beam"
+                                             else out.particles).all())
+                accuracy[mode] = {**{f"{k}_rel_err": v for k, v in sigma_errors.items()},
+                                  "finite": finite}
+    launches = _no_cic_launches(wrappers, "the stage-3 lattice")
+
+    def grad_k1(dtype, device, incoming):
+        segment = _stage3(dtype, device, seeded=True)
+        k1 = segment.AREAMQZM1.k1.clone().requires_grad_()
+        segment.AREAMQZM1.k1 = k1
+        (grad,) = torch.autograd.grad(segment.track(incoming).sigma_x, k1)
+        return grad.item()
+
+    grad32 = grad_k1(torch.float32, "cuda", beam)
+    grad_cpu = grad_k1(torch.float64, "cpu", beam64)
+    card64 = beam.to(dtype=torch.float64)
+    grad_card64 = grad_k1(torch.float64, "cuda", card64)
+    segment64 = _stage3(torch.float64, "cuda", seeded=True)
+    k1 = segment64.AREAMQZM1.k1.item()
+
+    def sigma_x(value):
+        segment64.AREAMQZM1.k1 = value
+        return segment64.track(card64).sigma_x.item()
+
+    with torch.no_grad():
+        fd = (sigma_x(k1 + STAGE3_FD_STEP) - sigma_x(k1 - STAGE3_FD_STEP)) / (2 * STAGE3_FD_STEP)
+    gradient = {
+        "k1": k1, "grad": grad32, "grad_cpu_f64": grad_cpu, "grad_card_f64": grad_card64,
+        "finite_difference_f64": fd, "fd_step": STAGE3_FD_STEP,
+        "rel_err_vs_f64": abs(grad32 - grad_cpu) / abs(grad_cpu),
+        "fd_rel_diff": abs(fd - grad_card64) / abs(grad_card64),
+    }
+    emit(
+        "ares_stage3", elements=len(lattice.elements), particles=beam.particles.shape[-2],
+        dtype="float32", timings=timings, accuracy=accuracy, gradient_AREAMQZM1_k1=gradient,
+        cic_kernel_launches=launches,
+    )
+    for mode in ("linear", "second_order", "parameter_beam"):
+        check(accuracy[mode]["finite"], f"stage 3 {mode}: non-finite output")
+        for name in ("sigma_x", "sigma_y"):
+            error = accuracy[mode][f"{name}_rel_err"]
+            check(error <= STAGE3_SIGMA_RTOL[mode], f"stage 3 {mode} {name} off by {error}")
+    dkd = accuracy["drift_kick_drift"]
+    check(dkd["same_particles_lost"], f"stage 3 dkd lost {dkd['lost_card']} particles on the "
+          f"card, {dkd['lost_f64']} in float64, not the same")
+    check(dkd["lost_f64"] * 1000 < beam.particles.shape[-2], "stage 3 dkd lost over 0.1%")
+    _check_shares("stage 3 dkd", dkd["max_err_over_f64_std"], dkd["p_max_abs_err"], True)
+    check(gradient["rel_err_vs_f64"] <= STAGE3_GRAD_F32_RTOL,
+          f"stage 3 k1 gradient off by {gradient['rel_err_vs_f64']}")
+    check(gradient["fd_rel_diff"] <= STAGE3_FD_RTOL,
+          f"stage 3 k1 gradient against its FD: {gradient['fd_rel_diff']}")
+
+
+def _new_element_cases(ctt, dtype, device) -> dict:
+    """Each new element (RBend in its three methods) as a one-element
+    segment, the ARES EA subcell merged by ``from_merging_elements`` and a
+    quadrupole with an active BPM superimposed at its centre."""
+    kw = {"dtype": dtype, "device": device}
+
+    def rbend(method):
+        return ctt.RBend(0.5, angle=0.2, rbend_e1=0.05, rbend_e2=-0.02, gap=0.02,
+                         fringe_integral=0.4, tracking_method=method, **kw)
+
+    return {
+        "solenoid": ctt.Solenoid(0.4, k=2.5, misalignment=(1e-4, -1e-4), **kw),
+        "undulator": ctt.Undulator(2.0, period=0.05, kx=1.2, ky=0.8, **kw),
+        "combined_corrector": ctt.CombinedCorrector(
+            0.1, horizontal_angle=2e-4, vertical_angle=-1e-4, **kw
+        ),
+        "rbend_linear": rbend("linear"),
+        "rbend_second_order": rbend("second_order"),
+        "rbend_drift_kick_drift": rbend("drift_kick_drift"),
+        "transverse_deflecting_cavity": ctt.TransverseDeflectingCavity(
+            0.6, voltage=1e6, phase=0.1, frequency=2.9e9, misalignment=(1e-4, -1e-4), tilt=0.05,
+            **kw,
+        ),
+        "superimposed_bpm": ctt.Segment([
+            ctt.Drift(0.4, **kw),
+            ctt.Superimposed(ctt.Quadrupole(0.3, k1=4.2, **kw),
+                             ctt.BPM(is_active=True, name="bpm", **kw)),
+            ctt.Drift(0.2, **kw),
+        ]),
+    }
+
+
+DKD_CASES = ("rbend_drift_kick_drift", "transverse_deflecting_cavity")
+
+
+def _merged_subcell(ctt, dtype, device, beam):
+    from cheetah_tpu_torch.lattices import ares_ea_subcell
+
+    segment = ares_ea_subcell(dtype, device=device)
+    return segment, ctt.CustomTransferMap.from_merging_elements(list(segment.elements), beam)
+
+
+def phase_new_elements(ctt, wrappers) -> None:
+    """Solenoid, Undulator, CombinedCorrector, RBend (three methods), the
+    transverse deflecting cavity, ``CustomTransferMap.from_merging_elements``
+    over the ARES EA subcell (against the subcell's own ``track``) and a
+    Superimposed BPM read through ``track_with_readings``, at 100k particles
+    in float32 on the card against the port's float64 run on the CPU."""
+    beam, _ = _stage3_beams(ctt)
+    beam64 = beam.to("cpu", torch.float64)
+    cases = _new_element_cases(ctt, torch.float32, "cuda")
+    cases64 = _new_element_cases(ctt, torch.float64, "cpu")
+    results = {}
+    _reset_launches(wrappers)
+    for label, element in cases.items():
+        if label == "superimposed_bpm":
+            out, readings = element.track_with_readings(beam)
+            out64, readings64 = cases64[label].track_with_readings(beam64)
+            sizes = torch.stack([out64.sigma_x, out64.sigma_y])
+            reading_error = ((readings["bpm"].double().cpu() - readings64["bpm"]).abs()
+                             / sizes).max().item()
+        else:
+            out, out64 = element.track(beam), cases64[label].track(beam64)
+        shares, p_error = _std_shares(out, out64)
+        results[label] = {
+            "ms": time_ms(lambda element=element: element.track(beam).particles, runs=10),
+            "max_err_over_f64_std": shares, "p_max_abs_err": p_error,
+            "finite": bool(torch.isfinite(out.particles).all()),
+            "energy_rel_err": abs(out.energy.double().item() / out64.energy.item() - 1),
+        }
+    results["superimposed_bpm"]["bpm_err_over_beam_size"] = reading_error
+
+    segment, merged = _merged_subcell(ctt, torch.float32, "cuda", beam)
+    _, merged64 = _merged_subcell(ctt, torch.float64, "cpu", beam64)
+    out = merged.track(beam)
+    shares, p_error = _std_shares(out, merged64.track(beam64))
+    against_segment = _std_shares(out, segment.track(beam))[0]
+    results["custom_transfer_map_ares_ea"] = {
+        "ms": time_ms(lambda: merged.track(beam).particles, runs=10),
+        "max_err_over_f64_std": shares, "p_max_abs_err": p_error,
+        "max_diff_over_std_vs_segment_track": against_segment,
+        "finite": bool(torch.isfinite(out.particles).all()),
+        "energy_rel_err": 0.0,
+    }
+    launches = _no_cic_launches(wrappers, "the new elements")
+    emit("new_elements", particles=beam.particles.shape[-2], dtype="float32", cases=results,
+         cic_kernel_launches=launches)
+    for label, result in results.items():
+        check(result["finite"], f"{label}: non-finite particles")
+        _check_shares(label, result["max_err_over_f64_std"], result["p_max_abs_err"],
+                      label in DKD_CASES)
+        check(result["energy_rel_err"] <= CHAIN_ENERGY_RTOL, f"{label} energy off")
+    _check_shares("merged subcell against the subcell's track",
+                  results["custom_transfer_map_ares_ea"]["max_diff_over_std_vs_segment_track"],
+                  0.0, False)
+    check(reading_error <= BPM_READING_TOLERANCE, f"BPM reading off by {reading_error}")
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; none is available.", file=sys.stderr)
@@ -1842,6 +2172,8 @@ def main() -> int:
     phase_nonlinear_chain(ctt, wrappers)
     phase_nonlinear_chain_grad(ctt, wrappers)
     phase_func_transforms(ctt, wrappers, cic_kernels, cic_tiled)
+    phase_ares_stage3(ctt, wrappers)
+    phase_new_elements(ctt, wrappers)
 
     def entry(name, source, replaces, measured, **extra):
         by_path = {"space_charge_segment": segment_launches[name],

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import cheetah_tpu_torch as ctt
+from cheetah_tpu_torch import interop
 from cheetah_tpu_torch.lattices import ares_ea_subcell
 from cheetah_tpu_torch.ops import cic_kernels, cic_tiled
 
@@ -149,3 +150,83 @@ def test_kernel_sources_are_packaged_and_built_outside_git():
     for built in (cic_kernels.LIBRARY.path(), cic_tiled.LIBRARY.path()):
         assert built.parent.name == "build" and built.parent.parent == PACKAGE
     assert "build/" in (REPO / ".gitignore").read_text().split()
+
+
+NEW_ELEMENTS = ("Solenoid", "Undulator", "CombinedCorrector", "RBend",
+                "TransverseDeflectingCavity", "CustomTransferMap", "Superimposed")
+
+
+def _non_docstring_strings(path: pathlib.Path) -> list[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docstrings = {
+        id(node.body[0].value)
+        for node in ast.walk(tree)
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef))
+        and node.body and isinstance(node.body[0], ast.Expr)
+        and isinstance(node.body[0].value, ast.Constant)
+    }
+    return [
+        node.value
+        for node in ast.walk(tree)
+        if isinstance(node, ast.Constant) and isinstance(node.value, str)
+        and id(node) not in docstrings
+    ]
+
+
+def test_no_port_module_reads_the_jax_package():
+    """No string in the port's code names the JAX package's directory, and
+    loading the stage-3 lattice opens no file under it."""
+    for path in sorted(PACKAGE.rglob("*.py")):
+        for value in _non_docstring_strings(path):
+            assert value != "cheetah_tpu" and "cheetah_tpu/" not in value, f"{path}: {value!r}"
+    code = (
+        "import sys, pathlib;"
+        "opened = [];"
+        "sys.addaudithook(lambda event, args: opened.append(str(args[0])) "
+        "if event == 'open' and isinstance(args[0], str) else None);"
+        "import cheetah_tpu_torch as ctt;"
+        "segment = ctt.lattices.ares_stage3(device='cpu');"
+        "jax_package = str(pathlib.Path('cheetah_tpu').resolve()) + '/';"
+        "assert not [p for p in opened if str(pathlib.Path(p).resolve()).startswith(jax_package)], opened;"
+        "assert any(p.endswith('cheetah_tpu_torch/resources/ares_stage3.json') for p in opened);"
+        "assert not any(m.split('.')[0] in ('jax', 'cheetah_tpu') for m in sys.modules)"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, timeout=120)
+
+
+@pytest.mark.parametrize(
+    "entry_point",
+    [
+        lambda: ctt.lattices.ares_stage3(),
+        lambda: ctt.Segment.from_lattice_json(
+            str(PACKAGE / "resources" / "ares_stage3.json")
+        ),
+        lambda: ctt.Solenoid(0.1),
+        lambda: ctt.Undulator(1.0),
+        lambda: ctt.CombinedCorrector(0.1),
+        lambda: ctt.RBend(0.5, angle=0.1),
+        lambda: ctt.TransverseDeflectingCavity(0.5),
+        lambda: ctt.CustomTransferMap(np.eye(7).tolist()),
+    ],
+    ids=["ares_stage3", "from_lattice_json", "solenoid", "undulator", "combined_corrector",
+         "rbend", "tdc", "custom_transfer_map"],
+)
+def test_stage3_entry_points_raise_without_a_card(entry_point):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry_point()
+
+
+def test_new_elements_are_exported_and_the_lattice_is_packaged():
+    for name in (*NEW_ELEMENTS, "latticejson"):
+        assert name in ctt.__all__ and hasattr(ctt, name)
+    for name in NEW_ELEMENTS:
+        assert name in ctt.accelerator.__all__
+        assert interop.ELEMENT_TYPES[name] is getattr(ctt, name)
+    with open(REPO / "pyproject.toml", "rb") as f:
+        package_data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
+    assert "resources/*.json" in package_data["cheetah_tpu_torch"]
+    assert (PACKAGE / "resources" / "ares_stage3.json").is_file()
+    segment = ctt.lattices.ares_stage3(torch.float64, device="cpu")
+    assert len(segment.elements) == 195 and isinstance(segment.ARLIMSOG1A, ctt.Solenoid)
