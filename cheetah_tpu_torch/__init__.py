@@ -12,7 +12,10 @@ remaining linear elements (Solenoid, Undulator, CombinedCorrector,
 CustomTransferMap, Superimposed) and the LatticeJSON format that loads
 the whole ARES linear accelerator (``lattices.ares_stage3``). Every autograd
 Function of the package works under ``torch.func`` (``grad``, ``jvp``,
-``jacfwd``, ``hessian``, ``vmap``).
+``jacfwd``, ``hessian``, ``vmap``). The structure operations edit a lattice
+(``Segment.subcell``, ``split``, ``merge``, ``clone``, the lattice passes,
+``explain_plan``), and ``Segment.track_checkpointed`` recomputes each plan
+entry during backward instead of keeping its intermediates.
 """
 
 from cheetah_tpu_torch import latticejson, lattices
@@ -39,12 +42,29 @@ from cheetah_tpu_torch.accelerator import (
     Undulator,
     VerticalCorrector,
 )
+from cheetah_tpu_torch.ops import transfer_maps as track_methods
 from cheetah_tpu_torch.particles import Beam, ParameterBeam, ParticleBeam, Species
+from cheetah_tpu_torch.utils.warnings import (
+    DefaultParameterWarning,
+    DirtyNameWarning,
+    NoBeamPropertiesInLatticeWarning,
+    NotUnderstoodPropertyWarning,
+    PhysicsWarning,
+    UnknownElementWarning,
+    VisualizationWarning,
+)
 
 __all__ = [
     "Aperture",
     "BPM",
     "Beam",
+    "DefaultParameterWarning",
+    "DirtyNameWarning",
+    "NoBeamPropertiesInLatticeWarning",
+    "NotUnderstoodPropertyWarning",
+    "PhysicsWarning",
+    "UnknownElementWarning",
+    "VisualizationWarning",
     "Cavity",
     "CombinedCorrector",
     "CustomTransferMap",
@@ -69,4 +89,5 @@ __all__ = [
     "VerticalCorrector",
     "latticejson",
     "lattices",
+    "track_methods",
 ]

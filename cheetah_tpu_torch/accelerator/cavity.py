@@ -8,7 +8,7 @@ from typing import Any
 
 import torch
 
-from cheetah_tpu_torch.accelerator.element import Element
+from cheetah_tpu_torch.accelerator.element import Element, any_nonzero
 from cheetah_tpu_torch.constants import speed_of_light
 from cheetah_tpu_torch.ops.transfer_maps import matrix7, with_entries
 from cheetah_tpu_torch.particles import Beam, ParameterBeam, ParticleBeam
@@ -135,6 +135,10 @@ class Cavity(Element):
     @property
     def is_skippable(self) -> bool:
         return self.skippable_when_off and self._voltage_is_off
+
+    @property
+    def is_active(self) -> bool:
+        return any_nonzero(self.voltage)
 
     def first_order_transfer_map(
         self, energy: torch.Tensor, species: Species

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from cheetah_tpu_torch.accelerator.element import Element
+from cheetah_tpu_torch.accelerator.element import Element, any_nonzero
 from cheetah_tpu_torch.ops.transfer_maps import drift_matrix, with_entries
 from cheetah_tpu_torch.particles.species import Species
 
@@ -43,6 +43,10 @@ class _Corrector(Element):
     @property
     def is_skippable(self) -> bool:
         return True
+
+    @property
+    def is_active(self) -> bool:
+        return any_nonzero(self.angle)
 
     @property
     def defining_features(self) -> list[str]:
@@ -111,6 +115,10 @@ class CombinedCorrector(Element):
     @property
     def is_skippable(self) -> bool:
         return True
+
+    @property
+    def is_active(self) -> bool:
+        return any_nonzero(self.horizontal_angle) or any_nonzero(self.vertical_angle)
 
     @property
     def defining_features(self) -> list[str]:

@@ -7,6 +7,7 @@ import torch
 
 from cheetah_tpu_torch.accelerator.element import (
     Element,
+    any_nonzero,
     dkd_outgoing,
     require_particle_beam,
 )
@@ -102,6 +103,10 @@ class Dipole(Element):
     @property
     def is_skippable(self) -> bool:
         return self.tracking_method == "linear"
+
+    @property
+    def is_active(self) -> bool:
+        return any_nonzero(self.angle)
 
     # ------------------------------------------------------------------
     # Linear and second-order maps

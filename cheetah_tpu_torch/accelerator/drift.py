@@ -7,12 +7,14 @@ import torch
 from cheetah_tpu_torch.accelerator.element import (
     Element,
     dkd_outgoing,
+    num_pieces,
     require_particle_beam,
 )
 from cheetah_tpu_torch.ops.transfer_maps import base_ttensor, drift_matrix, with_first_order
 from cheetah_tpu_torch.particles import Beam, ParticleBeam
 from cheetah_tpu_torch.particles.species import Species
 from cheetah_tpu_torch.utils import bmadx
+from cheetah_tpu_torch.utils.names import merge_element_names
 
 
 class Drift(Element):
@@ -70,6 +72,30 @@ class Drift(Element):
     @property
     def is_skippable(self) -> bool:
         return self.tracking_method == "linear"
+
+    def split(self, resolution: torch.Tensor | float) -> list[Element]:
+        count = num_pieces(self.length, resolution)
+        return [
+            Drift(
+                self.length / count,
+                tracking_method=self.tracking_method,
+                name=f"{self.name}_split_{i}",
+                sanitize_name=False,
+                metadata=self.metadata,
+            )
+            for i in range(count)
+        ]
+
+    def merge(self, other: "Drift") -> "Drift | None":
+        if self.tracking_method != other.tracking_method:
+            return None
+        return Drift(
+            self.length + other.length,
+            tracking_method=self.tracking_method,
+            name=merge_element_names(self.name, other.name),
+            sanitize_name=False,
+            metadata={**other.metadata, **self.metadata},
+        )
 
     @property
     def defining_features(self) -> list[str]:

@@ -8,10 +8,15 @@ method, grid shapes) is plain Python attributes.
 
 Tracking checks that every buffer lies on the beam's device and raises
 otherwise: nothing moves between devices silently.
+
+Elements compare by value (``__eq__``, as in the JAX package) but hash by
+identity: ``nn.Module`` keeps sets of modules (``named_modules``, ``.to``,
+``state_dict``), which an unhashable module would break.
 """
 
 from __future__ import annotations
 
+import copy
 import warnings
 from typing import Any
 
@@ -25,6 +30,31 @@ from cheetah_tpu_torch.utils.names import sanitize_name as _sanitize
 from cheetah_tpu_torch.utils.warnings import DirtyNameWarning, PhysicsWarning
 
 generate_unique_name = UniqueNameGenerator(prefix="unnamed_element")
+
+
+def sum_element_lengths(lengths: list[torch.Tensor]) -> torch.Tensor:
+    """Broadcast sum of the elements' lengths; 0 for no element (a CPU
+    scalar, which adds to a tensor on any device)."""
+    if not lengths:
+        return torch.zeros(())
+    total = lengths[0]
+    for length in lengths[1:]:
+        total = total + length
+    return total
+
+
+def num_pieces(length: torch.Tensor, resolution: torch.Tensor | float) -> int:
+    """How many pieces of equal length ``split`` cuts ``length`` into so that
+    none is longer than ``resolution``: ``ceil(max |length| / resolution)``,
+    read on the host. A gradient on ``length`` still reaches the pieces,
+    which are ``length / count``."""
+    return int(torch.ceil(torch.max(torch.abs(length.detach())) / resolution))
+
+
+def any_nonzero(value: torch.Tensor) -> bool:
+    """``bool(any(value != 0))``, read on the host: an ``is_active`` test for
+    the set-up passes, never for tracking."""
+    return bool(torch.any(value.detach() != 0))
 
 
 def second_order_moment_transport(
@@ -161,6 +191,16 @@ class Element(nn.Module):
     # Transfer maps
     # ------------------------------------------------------------------
 
+    def transfer_map(self, energy: torch.Tensor, species: Species) -> torch.Tensor:
+        """Deprecated alias of :meth:`first_order_transfer_map`."""
+        warnings.warn(
+            "The `transfer_map` method is deprecated and will be removed in a "
+            "future version. Use `first_order_transfer_map` instead.",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        return self.first_order_transfer_map(energy, species)
+
     def first_order_transfer_map(
         self, energy: torch.Tensor, species: Species
     ) -> torch.Tensor:
@@ -257,10 +297,108 @@ class Element(nn.Module):
             static.append("tracking_method")
         return static
 
+    @property
+    def defining_tensors(self) -> list[str]:
+        """The defining features that are tensors (or plain numbers)."""
+        return [
+            feature
+            for feature in self.defining_features
+            if isinstance(getattr(self, feature), (torch.Tensor, float, int))
+            and not isinstance(getattr(self, feature), bool)
+        ]
+
+    def clone(self) -> "Element":
+        """Copy of the element. Tensors are copied with ``Tensor.clone`` (a
+        gradient still reaches the original's tensors), element-valued
+        features are cloned, dicts and lists deep-copied: an in-place edit of
+        the copy never reaches the original."""
+        kwargs = {
+            feature: _cloned(getattr(self, feature)) for feature in self.defining_features
+        }
+        own = next(iter(self._buffers.values()), None)
+        if own is not None:
+            # Parameters the constructor makes from Python numbers (a
+            # Marker's zero length) follow the original's dtype and device.
+            kwargs.update(dtype=own.dtype, device=own.device)
+        return self.__class__(
+            **kwargs, metadata=copy.deepcopy(self.metadata), sanitize_name=False
+        )
+
+    def split(self, resolution: torch.Tensor | float) -> list["Element"]:
+        """Split the element into pieces no longer than ``resolution`` m.
+        An element that cannot be split returns ``[self]``."""
+        return [self]
+
+    def merge(self, other: "Element") -> "Element | None":
+        """The element that ``self`` followed by ``other`` (of the same type)
+        make, or ``None`` where the type cannot merge."""
+        return None
+
+    def sanitize_name(self) -> None:
+        """Make the element's name a valid Python identifier."""
+        self.name = _sanitize(self.name)
+
     def extra_repr(self) -> str:
         return ", ".join(
             f"{feature}={getattr(self, feature)!r}" for feature in self.defining_features
         )
+
+    def __eq__(self, other: object) -> bool:
+        """Equal type and equal defining features, the name aside; nested
+        elements must have equal names and metadata too, as in the JAX
+        package's pytree comparison. Reads tensors back to the host."""
+        if type(self) is not type(other):
+            return False
+        return all(
+            _features_equal(getattr(self, feature), getattr(other, feature))
+            for feature in self.defining_features
+            if feature != "name"
+        )
+
+    # Identity hash, unlike the JAX package's unhashable elements: nn.Module
+    # keeps modules in sets (named_modules, .to, state_dict).
+    __hash__ = object.__hash__
+
+
+def _cloned(value: Any) -> Any:
+    if isinstance(value, (torch.Tensor, Element)):
+        return value.clone()
+    if isinstance(value, nn.ModuleList):
+        return [element.clone() for element in value]
+    if isinstance(value, (dict, list)):
+        return copy.deepcopy(value)
+    return value
+
+
+def _nested_equal(a: "Element", b: "Element") -> bool:
+    return a.name == b.name and a.metadata == b.metadata and a == b
+
+
+def _features_equal(a: Any, b: Any) -> bool:
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        a, b = torch.as_tensor(a), torch.as_tensor(b)
+        return a.shape == b.shape and not bool(torch.any(a != b.to(a.device)))
+    if isinstance(a, Element) or isinstance(b, Element):
+        return isinstance(a, Element) and isinstance(b, Element) and _nested_equal(a, b)
+    if isinstance(a, nn.ModuleList) or (
+        isinstance(a, (list, tuple)) and any(isinstance(item, Element) for item in a)
+    ):
+        return (
+            isinstance(b, (list, tuple, nn.ModuleList))
+            and len(a) == len(b)
+            and all(_features_equal(x, y) for x, y in zip(a, b))
+        )
+    return a == b
+
+
+def validate_understood_kwargs(kwargs: dict[str, Any], understood: list[str]) -> None:
+    """Raise on constructor keywords that are not understood.
+
+    :raises TypeError: naming the first keyword not in ``understood``.
+    """
+    for key in kwargs:
+        if key not in understood:
+            raise TypeError(f"Unexpected keyword argument {key!r}")
 
 
 class ZeroLengthMixin:

@@ -6,7 +6,9 @@ import torch
 
 from cheetah_tpu_torch.accelerator.element import (
     Element,
+    any_nonzero,
     dkd_outgoing,
+    num_pieces,
     require_particle_beam,
 )
 from cheetah_tpu_torch.ops.transfer_maps import (
@@ -18,6 +20,7 @@ from cheetah_tpu_torch.ops.transfer_maps import (
 from cheetah_tpu_torch.particles import Beam, ParticleBeam
 from cheetah_tpu_torch.particles.species import Species
 from cheetah_tpu_torch.utils import bmadx
+from cheetah_tpu_torch.utils.names import merge_element_names
 
 
 class Quadrupole(Element):
@@ -140,6 +143,50 @@ class Quadrupole(Element):
     @property
     def is_skippable(self) -> bool:
         return self.tracking_method == "linear"
+
+    @property
+    def is_active(self) -> bool:
+        return any_nonzero(self.k1)
+
+    def split(self, resolution: torch.Tensor | float) -> list[Element]:
+        count = num_pieces(self.length, resolution)
+        return [
+            Quadrupole(
+                self.length / count,
+                self.k1,
+                misalignment=self.misalignment,
+                tilt=self.tilt,
+                num_steps=self.num_steps,
+                tracking_method=self.tracking_method,
+                name=f"{self.name}_split_{i}",
+                sanitize_name=False,
+                metadata=self.metadata,
+            )
+            for i in range(count)
+        ]
+
+    def merge(self, other: "Quadrupole") -> "Quadrupole | None":
+        """The two as one quadrupole of length-weighted ``k1`` and summed
+        ``num_steps``, where their method, misalignment and tilt agree."""
+        if not (
+            self.tracking_method == other.tracking_method
+            and self.misalignment.shape == other.misalignment.shape
+            and bool(torch.all(self.misalignment == other.misalignment))
+            and bool(torch.all(self.tilt == other.tilt))
+        ):
+            return None
+        return Quadrupole(
+            self.length + other.length,
+            k1=(self.k1 * self.length + other.k1 * other.length)
+            / (self.length + other.length),
+            misalignment=self.misalignment,
+            tilt=self.tilt,
+            num_steps=self.num_steps + other.num_steps,
+            tracking_method=self.tracking_method,
+            name=merge_element_names(self.name, other.name),
+            sanitize_name=False,
+            metadata={**other.metadata, **self.metadata},
+        )
 
     @property
     def defining_features(self) -> list[str]:

@@ -13,6 +13,13 @@ particles with one quadratic map. ``track_moments`` collapses a
 particles, and ``track_with_readings``
 collects the readings of the active observers (screens, BPMs) along the
 way, tracking the stretches between them as fused runs.
+
+The structure operations (``subcell``, ``split``, ``merge``, the lattice
+passes) build new segments that share their elements' modules, as the JAX
+package's segments share their leaves; ``clone`` (``Element.clone``, which
+clones the elements too) copies them.
+``track_checkpointed`` tracks each plan entry under
+``torch.utils.checkpoint``.
 """
 
 from __future__ import annotations
@@ -21,15 +28,21 @@ from typing import Any, Iterator, Literal
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from cheetah_tpu_torch.accelerator.custom_transfer_map import CustomTransferMap
+from cheetah_tpu_torch.accelerator.drift import Drift
 from cheetah_tpu_torch.accelerator.element import (
     Element,
     beam_device,
+    sum_element_lengths,
     transport_second_order,
 )
+from cheetah_tpu_torch.accelerator.marker import Marker
 from cheetah_tpu_torch.accelerator.superimposed import Superimposed
 from cheetah_tpu_torch.particles import Beam, ParticleBeam, Species
 from cheetah_tpu_torch.utils.device import check_module_device
+from cheetah_tpu_torch.utils.names import merge_element_names
 
 
 class Segment(Element):
@@ -72,6 +85,220 @@ class Segment(Element):
         """Ordered list of the names of the elements in the segment."""
         return [element.name for element in self.elements]
 
+    # ------------------------------------------------------------------
+    # Structure
+    # ------------------------------------------------------------------
+
+    def element_index(self, element_name: str) -> int:
+        """Index of the first element with the given name.
+
+        :raises ValueError: if no element has that name.
+        """
+        try:
+            return self.element_names.index(element_name)
+        except ValueError:
+            raise ValueError(f"Element '{element_name}' not found in segment.")
+
+    def subcell(
+        self,
+        start: str | None = None,
+        end: str | None = None,
+        include_start: bool = True,
+        include_end: bool = True,
+    ) -> "Segment":
+        """The elements between two named elements, as a new segment.
+
+        :raises ValueError: if ``start`` or ``end`` is not in the segment.
+        """
+        names = self.element_names
+        if start is not None and start not in names:
+            raise ValueError(f"Element {start} is not part of the segment.")
+        if end is not None and end not in names:
+            raise ValueError(f"Element {end} is not part of the segment.")
+
+        subcell = []
+        is_in_subcell = start is None
+        for element in self.elements:
+            if element.name == start:
+                is_in_subcell = True
+                if include_start:
+                    subcell.append(element)
+                continue
+            if element.name == end:
+                if include_end and is_in_subcell:
+                    subcell.append(element)
+                break
+            if is_in_subcell:
+                subcell.append(element)
+        return self.__class__(subcell)
+
+    def flattened(self) -> "Segment":
+        """One flat segment of the leaf elements: nested segments and the
+        halves of ``Superimposed`` elements resolved."""
+        flattened_elements: list[Element] = []
+        for element in self.elements:
+            if isinstance(element, (Segment, Superimposed)):
+                flattened_elements += element.flattened().elements
+            else:
+                flattened_elements.append(element)
+        return self.__class__(flattened_elements, name=self.name, sanitize_name=False)
+
+    def reversed(self) -> "Segment":
+        """The segment with its elements (and those of nested segments) in
+        reverse order."""
+        reversed_elements = [
+            element.reversed() if isinstance(element, Segment) else element
+            for element in reversed(self.elements)
+        ]
+        return self.__class__(
+            reversed_elements, name=f"{self.name}_reversed", sanitize_name=False
+        )
+
+    def partition_at(
+        self, element_name: str, mode: Literal["before", "after", "both"] = "both"
+    ) -> tuple[Element, ...]:
+        """Split the segment around a named element: ``(before, element,
+        after)`` for ``mode="both"``, else two segments with the element at
+        the start of the second (``"before"``) or the end of the first
+        (``"after"``)."""
+        index = self.element_index(element_name)
+        elements = list(self.elements)
+        pre_cell = self.__class__(elements[: index + 1] if mode == "after" else elements[:index])
+        post_cell = self.__class__(elements[index:] if mode == "before" else elements[index + 1 :])
+        return (pre_cell, elements[index], post_cell) if mode == "both" else (pre_cell, post_cell)
+
+    def split(self, resolution: torch.Tensor | float) -> list[Element]:
+        """Every element split into pieces no longer than ``resolution``."""
+        return [piece for element in self.elements for piece in element.split(resolution)]
+
+    def merge(self, other: "Segment") -> "Segment":
+        """The two segments' elements in one segment."""
+        return self.__class__(
+            [*self.elements, *other.elements],
+            name=merge_element_names(self.name, other.name),
+            sanitize_name=False,
+            metadata={**self.metadata, **other.metadata},
+        )
+
+    # ------------------------------------------------------------------
+    # Lattice passes (on the host, before tracking)
+    # ------------------------------------------------------------------
+
+    def transfer_maps_merged(
+        self, incoming_beam: Beam, except_for: list[str] | None = None
+    ) -> "Segment":
+        """Runs of skippable elements merged into :class:`CustomTransferMap`
+        elements.
+
+        :param incoming_beam: Beam entering the segment; a merged map is
+            built at the energy of the beam where its run starts.
+        :param except_for: Names of elements to keep unmerged (the tunables).
+        """
+        except_for = except_for if except_for is not None else []
+
+        merged_elements: list[Element] = []
+        skippable_elements: list[Element] = []
+        tracked_beam = incoming_beam
+        for element in self.elements:
+            if element.is_skippable and element.name not in except_for:
+                skippable_elements.append(element)
+                continue
+            if len(skippable_elements) == 1:
+                merged_elements.append(skippable_elements[0])
+                tracked_beam = skippable_elements[0].track(tracked_beam)
+            elif len(skippable_elements) > 1:
+                merged_elements.append(
+                    CustomTransferMap.from_merging_elements(
+                        skippable_elements, incoming_beam=tracked_beam
+                    )
+                )
+                tracked_beam = merged_elements[-1].track(tracked_beam)
+            skippable_elements = []
+            merged_elements.append(element)
+            tracked_beam = element.track(tracked_beam)
+
+        if skippable_elements:
+            merged_elements.append(
+                CustomTransferMap.from_merging_elements(
+                    skippable_elements, incoming_beam=tracked_beam
+                )
+            )
+        return self.__class__(merged_elements, name=self.name, sanitize_name=False)
+
+    def without_inactive_markers(self, except_for: list[str] | None = None) -> "Segment":
+        """The segment without its markers, but those named in ``except_for``."""
+        except_for = except_for if except_for is not None else []
+        return self.__class__(
+            [
+                element
+                for element in self.elements
+                if not isinstance(element, Marker) or element.name in except_for
+            ],
+            name=self.name,
+            sanitize_name=False,
+        )
+
+    def without_inactive_zero_length_elements(
+        self, except_for: list[str] | None = None
+    ) -> "Segment":
+        """The segment without its inactive elements of zero length, but
+        those named in ``except_for``."""
+        except_for = except_for if except_for is not None else []
+        return self.__class__(
+            [
+                element
+                for element, has_length in zip(self.elements, _lengths_nonzero(self.elements))
+                if has_length or _is_active(element) or element.name in except_for
+            ],
+            name=self.name,
+            sanitize_name=False,
+        )
+
+    def inactive_elements_as_drifts(self, except_for: list[str] | None = None) -> "Segment":
+        """The segment with each inactive element that has a length replaced
+        by a drift of that length, but those named in ``except_for``."""
+        except_for = except_for if except_for is not None else []
+        return self.__class__(
+            [
+                element
+                if _is_active(element) or not has_length or element.name in except_for
+                else Drift(element.length, name=element.name, sanitize_name=False)
+                for element, has_length in zip(self.elements, _lengths_nonzero(self.elements))
+            ],
+            name=self.name,
+            sanitize_name=False,
+        )
+
+    def with_consecutive_elements_merged(
+        self, except_for: list[str] | None = None
+    ) -> "Segment":
+        """The segment with consecutive elements of one type merged where
+        their type can (``Element.merge``); nested segments merge their own
+        elements. Elements named in ``except_for`` are kept as they are."""
+        except_for = except_for if except_for is not None else []
+
+        merged_elements: list[Element] = []
+        current = self.elements[0]
+        for next_element in list(self.elements)[1:]:
+            if current.name not in except_for:
+                if type(current) is Segment:
+                    current = current.with_consecutive_elements_merged(except_for=except_for)
+                elif type(current) is type(next_element) and next_element.name not in except_for:
+                    merged = current.merge(next_element)
+                    if merged is not None:
+                        current = merged
+                        continue
+            merged_elements.append(current)
+            current = next_element
+        merged_elements.append(current)
+
+        return self.__class__(
+            merged_elements,
+            name=self.name,
+            sanitize_name=False,
+            metadata=dict(self.metadata),
+        )
+
     @property
     def is_skippable(self) -> bool:
         return all(element.is_skippable for element in self.elements)
@@ -80,10 +307,7 @@ class Segment(Element):
     def length(self) -> torch.Tensor:
         """The sum of the elements' lengths; 0 for an empty segment (a CPU
         scalar, which adds to a tensor on any device)."""
-        total = None
-        for element in self.elements:
-            total = element.length if total is None else total + element.length
-        return torch.zeros(()) if total is None else total
+        return sum_element_lengths([element.length for element in self.elements])
 
     def first_order_transfer_map(
         self, energy: torch.Tensor, species: Species
@@ -104,6 +328,23 @@ class Segment(Element):
             return self._track_first_order(incoming)
         for todo in self._plan():
             incoming = todo._track(incoming)
+        return incoming
+
+    def track_checkpointed(self, incoming: Beam) -> Beam:
+        """:meth:`track` with each plan entry (a fused run or an element that
+        breaks fusion) under ``torch.utils.checkpoint``: backward keeps only
+        the beam between entries and runs each entry's forward again, which
+        trades compute for memory on long nonlinear lines (many space-charge
+        kicks over large particle arrays). Values equal :meth:`track`'s;
+        gradients equal them up to the rounding of the space-charge deposits,
+        whose float atomics may add in another order when run again.
+        Tracking draws no random numbers, so no generator state is saved.
+        """
+        check_module_device(self, beam_device(incoming))
+        for todo in self._plan():
+            incoming = checkpoint(
+                _track_todo, todo, incoming, use_reentrant=False, preserve_rng_state=False
+            )
         return incoming
 
     def track_moments(
@@ -198,17 +439,19 @@ class Segment(Element):
         return flush(incoming), readings
 
     def beam_along_segment_generator(
-        self, incoming: Beam, resolution: float | None = None
+        self, incoming: Beam, resolution: torch.Tensor | float | None = None
     ) -> Iterator[Beam]:
         """Yield the beam at the entrance and after every element.
 
-        :param resolution: Must be ``None``: splitting the elements first
-            comes with the structure operations (``split``), not ported yet.
+        :param resolution: If given, the elements are first split into
+            pieces no longer than this (m), and the beam is yielded after
+            every piece.
         """
         if resolution is not None:
-            raise NotImplementedError(
-                "resolution= needs Element.split, which comes with the structure operations."
-            )
+            yield from self.__class__(
+                self.split(resolution), name=f"{self.name}_split"
+            ).beam_along_segment_generator(incoming)
+            return
         check_module_device(self, beam_device(incoming))
         yield incoming
         for element in self.elements:
@@ -239,6 +482,41 @@ class Segment(Element):
             for along, name in zip(values, names)
         )
         return stacked if isinstance(attr_names, tuple) else stacked[0]
+
+    def explain_plan(self) -> str:
+        """What :meth:`track` runs, one line per plan entry: which elements
+        fuse into one matmul or one quadratic map, and which break the
+        fusion. Informational only; the text is the JAX package's.
+        """
+
+        def names(elements) -> str:
+            labels = [element.name or type(element).__name__ for element in elements]
+            if len(labels) > 8:
+                labels = labels[:4] + ["..."] + labels[-3:]
+            return ", ".join(labels)
+
+        lines = []
+        for index, todo in enumerate(self._plan(), start=1):
+            if isinstance(todo, _SecondOrderBracket):
+                parts = []
+                if len(todo.upstream):
+                    parts.append(f"{len(todo.upstream)} upstream")
+                parts.append(f"{type(todo.element).__name__} '{todo.element.name or ''}'")
+                if len(todo.downstream):
+                    parts.append(f"{len(todo.downstream)} downstream")
+                lines.append(
+                    f"{index}. second-order bracket (1 quadratic apply): " + " + ".join(parts)
+                )
+            elif isinstance(todo, Segment) and todo.is_skippable:
+                flat = todo.flattened().elements
+                lines.append(
+                    f"{index}. fused linear run (1 matmul, {len(flat)} elements): {names(flat)}"
+                )
+            else:
+                method = getattr(todo, "tracking_method", None)
+                suffix = f" [{method}]" if method and method != "linear" else ""
+                lines.append(f"{index}. {type(todo).__name__} '{todo.name or ''}'{suffix}")
+        return "\n".join(lines)
 
     def _plan(self) -> list[Element]:
         """Partition the elements into fused skippable runs and individual
@@ -357,6 +635,19 @@ class Segment(Element):
     def extra_repr(self) -> str:
         # The elements print as child modules.
         return f"name={self.name!r}"
+
+
+def _track_todo(todo: Element, incoming: Beam) -> Beam:
+    return todo._track(incoming)
+
+
+def _is_active(element: Element) -> bool:
+    return bool(getattr(element, "is_active", False))
+
+
+def _lengths_nonzero(elements) -> list[bool]:
+    """Per element ``any(length != 0)``, read on the host."""
+    return [bool(torch.any(element.length.detach() != 0)) for element in elements]
 
 
 def _is_second_order_leaf(element: Element) -> bool:

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from cheetah_tpu_torch.accelerator.element import Element
+from cheetah_tpu_torch.accelerator.element import Element, any_nonzero
 from cheetah_tpu_torch.ops.transfer_maps import (
     base_ttensor,
     combined_rotation_misalignment_matrix,
@@ -12,6 +12,7 @@ from cheetah_tpu_torch.ops.transfer_maps import (
     with_first_order,
 )
 from cheetah_tpu_torch.particles.species import Species
+from cheetah_tpu_torch.utils.names import merge_element_names
 
 
 class Sextupole(Element):
@@ -75,6 +76,32 @@ class Sextupole(Element):
     @property
     def is_skippable(self) -> bool:
         return self.tracking_method == "linear"
+
+    @property
+    def is_active(self) -> bool:
+        return any_nonzero(self.k2)
+
+    def merge(self, other: "Sextupole") -> "Sextupole | None":
+        """The two as one sextupole, where their method, ``k2``,
+        misalignment and tilt agree."""
+        if not (
+            self.tracking_method == other.tracking_method
+            and self.k2.shape == other.k2.shape
+            and bool(torch.all(self.k2 == other.k2))
+            and bool(torch.all(self.misalignment == other.misalignment))
+            and bool(torch.all(self.tilt == other.tilt))
+        ):
+            return None
+        return Sextupole(
+            self.length + other.length,
+            k2=self.k2,
+            misalignment=self.misalignment,
+            tilt=self.tilt,
+            tracking_method=self.tracking_method,
+            name=merge_element_names(self.name, other.name),
+            sanitize_name=False,
+            metadata={**other.metadata, **self.metadata},
+        )
 
     @property
     def defining_features(self) -> list[str]:

@@ -6,9 +6,10 @@ import math
 
 import torch
 
-from cheetah_tpu_torch.accelerator.element import Element
+from cheetah_tpu_torch.accelerator.element import Element, any_nonzero, num_pieces
 from cheetah_tpu_torch.ops.transfer_maps import matrix7, misalignment_matrix
 from cheetah_tpu_torch.particles.species import Species
+from cheetah_tpu_torch.utils.names import merge_element_names
 from cheetah_tpu_torch.utils.physics import compute_relativistic_factors
 
 
@@ -86,6 +87,39 @@ class Solenoid(Element):
     @property
     def is_skippable(self) -> bool:
         return True
+
+    @property
+    def is_active(self) -> bool:
+        return any_nonzero(self.k)
+
+    def split(self, resolution: torch.Tensor | float) -> list[Element]:
+        count = num_pieces(self.length, resolution)
+        return [
+            Solenoid(
+                length=self.length / count,
+                k=self.k,
+                misalignment=self.misalignment,
+                name=f"{self.name}_split_{i}",
+                sanitize_name=False,
+                metadata=self.metadata,
+            )
+            for i in range(count)
+        ]
+
+    def merge(self, other: "Solenoid") -> "Solenoid | None":
+        if not (
+            self.misalignment.shape == other.misalignment.shape
+            and bool(torch.all(self.misalignment == other.misalignment))
+        ):
+            return None
+        return Solenoid(
+            length=self.length + other.length,
+            k=(self.k * self.length + other.k * other.length) / (self.length + other.length),
+            misalignment=self.misalignment,
+            name=merge_element_names(self.name, other.name),
+            sanitize_name=False,
+            metadata={**other.metadata, **self.metadata},
+        )
 
     @property
     def defining_features(self) -> list[str]:

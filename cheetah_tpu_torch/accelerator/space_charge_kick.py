@@ -28,7 +28,7 @@ import torch
 from cheetah_tpu_torch.accelerator.element import Element
 from cheetah_tpu_torch.constants import elementary_charge, epsilon_0, speed_of_light
 from cheetah_tpu_torch.ops import cic_kernels
-from cheetah_tpu_torch.ops.cloud_in_cell import cloud_in_cell_charge_deposition
+from cheetah_tpu_torch.ops.cloud_in_cell import cloud_in_cell_charge_deposition, grid_counts
 from cheetah_tpu_torch.particles import ParticleBeam
 
 
@@ -167,7 +167,10 @@ class SpaceChargeKick(Element):
             extent=torch.stack([-grid_dimensions, grid_dimensions], dim=-1),
             charges=beam.particle_charges * beam.survival_probabilities,
         )
-        inv_cell_volume = 1.0 / torch.prod(cell_size, dim=-1)
+        # Not torch.prod: its backward looks for zero factors with
+        # ``nonzero``, a device sync in every backward that no CUDA graph
+        # can capture.
+        inv_cell_volume = 1.0 / (cell_size[..., 0] * cell_size[..., 1] * cell_size[..., 2])
         charge_density = charge_grid * inv_cell_volume[..., None, None, None]
 
         nx, ny, nt = self.grid_shape
@@ -273,6 +276,9 @@ class SpaceChargeKick(Element):
             survival_probabilities=incoming.survival_probabilities.expand(
                 *vector_shape, n
             ).reshape(-1, n),
+            # The incoming s, though unused here: a default would be built
+            # from a Python number on the host on every call.
+            s=incoming.s,
             species=incoming.species,
         )
         effect_length = self.effect_length.expand(vector_shape).reshape(-1)
@@ -286,13 +292,14 @@ class SpaceChargeKick(Element):
             ],
             dim=-1,
         )
-        cell_size = 2 * grid_dimensions / torch.as_tensor(
-            self.grid_shape, dtype=grid_dimensions.dtype, device=grid_dimensions.device
+        cell_size = 2 * grid_dimensions / grid_counts(
+            self.grid_shape, grid_dimensions.dtype, grid_dimensions.device
         )
         dt = effect_length / (speed_of_light * flattened.relativistic_beta)
 
         xp_coordinates = flattened.to_xyz_pxpypz()
-        positions = xp_coordinates[..., [0, 2, 4]]
+        # x, y, z: a strided view, no index tensor to copy to the card.
+        positions = xp_coordinates[..., 0:5:2]
         grids = self._force_fields(flattened, positions, cell_size, grid_dimensions)
         normalized = (positions + grid_dimensions[..., None, :]) / cell_size[..., None, :]
         (values,) = cic_kernels.differentiable_gather(grids, normalized, cic_kernels.VALUE)

@@ -81,6 +81,10 @@ class Superimposed(Element):
             sanitize_name=False,
         )
 
+    def flattened(self):
+        """The half-base / superimposed / half-base segment, flattened."""
+        return self._segment().flattened()
+
     @property
     def is_skippable(self) -> bool:
         # Halving the length changes no element's skippability.

@@ -9,6 +9,7 @@ import torch
 
 from cheetah_tpu_torch.accelerator.element import (
     Element,
+    any_nonzero,
     dkd_outgoing,
     require_particle_beam,
 )
@@ -76,6 +77,10 @@ class TransverseDeflectingCavity(Element):
     @property
     def is_skippable(self) -> bool:
         return False
+
+    @property
+    def is_active(self) -> bool:
+        return any_nonzero(self.voltage)
 
     def _track_drift_kick_drift(self, incoming: Beam) -> ParticleBeam:
         incoming = require_particle_beam(incoming)

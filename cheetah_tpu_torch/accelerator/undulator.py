@@ -8,7 +8,7 @@ import math
 
 import torch
 
-from cheetah_tpu_torch.accelerator.element import Element
+from cheetah_tpu_torch.accelerator.element import Element, any_nonzero
 from cheetah_tpu_torch.ops.transfer_maps import matrix7
 from cheetah_tpu_torch.particles.species import Species
 from cheetah_tpu_torch.utils.physics import compute_relativistic_factors
@@ -102,6 +102,10 @@ class Undulator(Element):
     @property
     def is_skippable(self) -> bool:
         return True
+
+    @property
+    def is_active(self) -> bool:
+        return any_nonzero(self.kx) or any_nonzero(self.ky)
 
     @property
     def defining_features(self) -> list[str]:

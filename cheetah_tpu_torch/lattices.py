@@ -4,14 +4,20 @@ The ARES Experimental Area (EA) subcell is the section from AREASOLA1 to
 AREABSCR1 of the ARES accelerator at DESY: drifts, three quadrupoles and two
 corrector coils, ending at the AREABSCR1 screen. ``ares_stage3`` is the
 whole ARES linear accelerator, read from the package's own LatticeJSON.
+``cold_beam_line`` is a space-charge transport line that the structure
+operations build: the cold uniform beam of ImpactX's expanding-beam
+benchmark and the drift it doubles its size in, cut by ``split`` and
+interleaved with space-charge kicks.
 """
 
 from __future__ import annotations
 
+import math
 import pathlib
 
 import torch
 
+from cheetah_tpu_torch import constants
 from cheetah_tpu_torch.accelerator import (
     Drift,
     HorizontalCorrector,
@@ -19,8 +25,10 @@ from cheetah_tpu_torch.accelerator import (
     Quadrupole,
     Screen,
     Segment,
+    SpaceChargeKick,
     VerticalCorrector,
 )
+from cheetah_tpu_torch.particles import ParticleBeam
 
 
 def ares_ea_subcell(
@@ -80,3 +88,51 @@ def ares_stage3(
     """
     path = pathlib.Path(__file__).parent / "resources" / "ares_stage3.json"
     return Segment.from_lattice_json(str(path), dtype=dtype, device=device)
+
+
+def cold_beam_line(
+    kicks: int = 10,
+    grid_shape: tuple[int, int, int] = (32, 32, 32),
+    num_particles: int = 1_000_000,
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str | None = None,
+    generator: torch.Generator | None = None,
+) -> tuple[ParticleBeam, Segment]:
+    """A cold uniform beam and the space-charge line it doubles its size in
+    (ImpactX's expanding-beam benchmark, the JAX package's
+    ``tests/test_space_charge.py:53-104``): a 1 mm sphere (in the beam frame)
+    of 10 nC at 250 MeV with momentum spreads of 1e-15, and a drift of the
+    analytic doubling length L built as a user builds such a line:
+    ``Drift(L).split`` into ``2 * kicks`` pieces, a ``SpaceChargeKick(L /
+    kicks)`` after every second piece, the drifts left side by side merged
+    by ``with_consecutive_elements_merged``. The line is ``D(L / 2k) K D(L /
+    k) K ... K D(L / 2k)``, ``2 * kicks + 1`` plan entries.
+
+    :param kicks: Number of space-charge kicks.
+    :param grid_shape: The kicks' grid.
+    :param generator: Random number generator for the beam.
+    :return: ``(beam, line)``.
+    """
+    radius, energy = 1e-3, 2.5e8
+    gamma = energy / constants.electron_mass_eV
+    beta = math.sqrt(1.0 - 1.0 / gamma**2)
+    beam = ParticleBeam.uniform_3d_ellipsoid(
+        num_particles=num_particles, radius_x=radius, radius_y=radius,
+        radius_tau=radius / (gamma * beta), sigma_px=1e-15, sigma_py=1e-15, sigma_p=1e-15,
+        energy=energy, total_charge=1e-8, generator=generator, dtype=dtype, device=device,
+    )
+    kappa = 1.0 + math.sqrt(2.0) / 4.0 * math.log(3.0 + 2.0 * math.sqrt(2.0))
+    electrons = 1e-8 / constants.elementary_charge
+    length = beta * gamma * kappa * math.sqrt(radius**3 / (electrons * constants.electron_radius))
+    kw = {"dtype": dtype, "device": beam.particles.device}
+    # A hair over L / 2k, so that rounding cannot make one piece more.
+    pieces = Drift(length, name="drift", **kw).split(length / (2 * kicks) * (1.0 + 1e-6))
+    elements = []
+    for index, piece in enumerate(pieces):
+        elements.append(piece)
+        if index % 2 == 0:
+            elements.append(
+                SpaceChargeKick(length / kicks, grid_shape=grid_shape, name=f"kick_{index // 2}", **kw)
+            )
+    line = Segment(elements, name="space_charge_line").with_consecutive_elements_merged()
+    return beam, line

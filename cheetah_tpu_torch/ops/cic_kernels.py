@@ -348,6 +348,24 @@ def _node_plan(plan, normalized: torch.Tensor, histogram_shape):
     return cic_tiled.plan_tiles(normalized.detach(), histogram_shape)
 
 
+def _save_with_plan(ctx, plan, *tensors: torch.Tensor) -> None:
+    """Save ``tensors`` and the tensors of ``plan`` (if any) for backward
+    and forward mode. A plan saved as a tensor, not as an attribute of
+    ``ctx``, is what ``torch.utils.checkpoint`` can drop after forward and
+    make again when it runs the forward anew."""
+    ctx.plan_sizes = None if plan is None else (plan.rows_per_tile, plan.num_tiles)
+    plan_tensors = () if plan is None else tuple(plan[2:])
+    ctx.save_for_backward(*tensors, *plan_tensors)
+    ctx.save_for_forward(*tensors, *plan_tensors)
+
+
+def _saved_with_plan(ctx, count: int) -> tuple:
+    """The ``count`` tensors that :func:`_save_with_plan` saved, and the plan."""
+    saved = ctx.saved_tensors
+    plan = None if ctx.plan_sizes is None else cic_tiled.TilePlan(*ctx.plan_sizes, *saved[count:])
+    return (*saved[:count], plan)
+
+
 class _PlanSlot:
     """The tile plan of one autograd node. A Function's ``forward`` takes no
     ``ctx`` in the ``torch.func`` form, so it leaves the plan it made here,
@@ -404,14 +422,12 @@ class GatherMulti(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         grids, normalized, orders, slot = inputs
         ctx.orders = check_orders(orders)
-        ctx.plan = slot.plan
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(grids, normalized)
-        ctx.save_for_forward(grids, normalized)
+        _save_with_plan(ctx, slot.plan, grids, normalized)
 
     @staticmethod
     def backward(ctx, *grad_outs):
-        grids, normalized = ctx.saved_tensors
+        grids, normalized, plan = _saved_with_plan(ctx, 2)
         live = [(grad, order) for grad, order in zip(grad_outs, ctx.orders) if grad is not None]
         grad_grids = grad_normalized = None
         if not live:
@@ -420,14 +436,14 @@ class GatherMulti(torch.autograd.Function):
             rows = torch.stack([grad for grad, _ in live], dim=1)
             grad_grids = DepositMulti.apply(
                 normalized, rows, tuple(grids.shape[2:]), tuple(order for _, order in live),
-                _PlanSlot(ctx.plan),
+                _PlanSlot(plan),
             )
         if ctx.needs_input_grad[1]:
             need = _unique(r for _, order in live for _, r in _raised(order))
             terms: dict[int, torch.Tensor] = {}
             if need:
                 raised = dict(
-                    zip(need, GatherMulti.apply(grids, normalized, need, _PlanSlot(ctx.plan)))
+                    zip(need, GatherMulti.apply(grids, normalized, need, _PlanSlot(plan)))
                 )
                 for grad, order in live:
                     for axis, r in _raised(order):
@@ -437,14 +453,14 @@ class GatherMulti(torch.autograd.Function):
 
     @staticmethod
     def jvp(ctx, grids_dot, normalized_dot, *_):
-        grids, normalized = ctx.saved_tensors
+        grids, normalized, plan = _saved_with_plan(ctx, 2)
         orders = ctx.orders
         terms: dict[int, torch.Tensor] = {}
         if normalized_dot is not None:
             need = _unique(r for order in orders for _, r in _raised(order))
             if need:
                 raised = dict(
-                    zip(need, GatherMulti.apply(grids, normalized, need, _PlanSlot(ctx.plan)))
+                    zip(need, GatherMulti.apply(grids, normalized, need, _PlanSlot(plan)))
                 )
                 for index, order in enumerate(orders):
                     for axis, r in _raised(order):
@@ -452,7 +468,7 @@ class GatherMulti(torch.autograd.Function):
                             terms, index, raised[r] * normalized_dot[..., axis].unsqueeze(1)
                         )
         if grids_dot is not None:
-            gathered = GatherMulti.apply(grids_dot, normalized, orders, _PlanSlot(ctx.plan))
+            gathered = GatherMulti.apply(grids_dot, normalized, orders, _PlanSlot(plan))
             for index, value in enumerate(gathered):
                 _accumulate(terms, index, value)
         shape = (*grids.shape[:2], normalized.shape[1])
@@ -497,16 +513,14 @@ class DepositMulti(torch.autograd.Function):
         normalized, rows, histogram_shape, orders, slot = inputs
         ctx.orders = check_orders(orders)
         ctx.histogram_shape = tuple(histogram_shape)
-        ctx.plan = slot.plan
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(normalized, rows)
-        ctx.save_for_forward(normalized, rows)
+        _save_with_plan(ctx, slot.plan, normalized, rows)
 
     @staticmethod
     def backward(ctx, grad):
         if grad is None:
             return None, None, None, None, None
-        normalized, rows = ctx.saved_tensors
+        normalized, rows, plan = _saved_with_plan(ctx, 2)
         orders = ctx.orders
         want = list(orders) if ctx.needs_input_grad[1] else []
         if ctx.needs_input_grad[0]:
@@ -514,7 +528,7 @@ class DepositMulti(torch.autograd.Function):
         want = _unique(want)
         if not want:
             return None, None, None, None, None
-        gathered = dict(zip(want, GatherMulti.apply(grad, normalized, want, _PlanSlot(ctx.plan))))
+        gathered = dict(zip(want, GatherMulti.apply(grad, normalized, want, _PlanSlot(plan))))
         grad_normalized = grad_rows = None
         if ctx.needs_input_grad[0]:
             terms: dict[int, torch.Tensor] = {}
@@ -528,7 +542,7 @@ class DepositMulti(torch.autograd.Function):
 
     @staticmethod
     def jvp(ctx, normalized_dot, rows_dot, *_):
-        normalized, rows = ctx.saved_tensors
+        normalized, rows, plan = _saved_with_plan(ctx, 2)
         blocks: dict[tuple[int, int, int], torch.Tensor] = {}
         if rows_dot is not None:
             for index, order in enumerate(ctx.orders):
@@ -541,7 +555,7 @@ class DepositMulti(torch.autograd.Function):
             return rows.new_zeros((rows.shape[0], rows.shape[2], *ctx.histogram_shape))
         return DepositMulti.apply(
             normalized, torch.stack(list(blocks.values()), dim=1), ctx.histogram_shape,
-            tuple(blocks), _PlanSlot(ctx.plan),
+            tuple(blocks), _PlanSlot(plan),
         )
 
     @staticmethod

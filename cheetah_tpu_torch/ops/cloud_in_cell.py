@@ -24,6 +24,7 @@ unit and are not carried over.
 
 from __future__ import annotations
 
+import functools
 import itertools
 import math
 from typing import Sequence
@@ -31,6 +32,15 @@ from typing import Sequence
 import torch
 
 from cheetah_tpu_torch.ops import cic_kernels
+
+
+
+@functools.lru_cache(maxsize=None)
+def grid_counts(shape: tuple[int, ...], dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A grid's cell counts as a tensor on ``device``, made once: building it
+    from the Python tuple on every call would copy it from the host, which a
+    CUDA graph cannot capture."""
+    return torch.tensor(shape, dtype=dtype, device=device)
 
 
 def binspace_and_mask(
@@ -49,7 +59,7 @@ def binspace_and_mask(
     """
     left = extent[:, None, :, 0]
     right = extent[:, None, :, 1]
-    nb = torch.as_tensor(histogram_shape, dtype=positions.dtype, device=positions.device)
+    nb = grid_counts(tuple(histogram_shape), positions.dtype, positions.device)
     scale = nb / (right - left)
     in_bin_space = (positions - left) * scale - 0.5
     in_extent = torch.all((positions >= left) & (positions <= right), dim=-1)

@@ -9,6 +9,9 @@ through all operations. All statistics are survival-probability weighted.
 
 from __future__ import annotations
 
+import math
+from typing import Any
+
 import torch
 
 from cheetah_tpu_torch import constants
@@ -295,6 +298,77 @@ class ParticleBeam(Beam):
         )
 
     @classmethod
+    def uniform_3d_ellipsoid(
+        cls,
+        num_particles: int = 100_000,
+        radius_x: torch.Tensor | float | None = None,
+        radius_y: torch.Tensor | float | None = None,
+        radius_tau: torch.Tensor | float | None = None,
+        sigma_px: torch.Tensor | float | None = None,
+        sigma_py: torch.Tensor | float | None = None,
+        sigma_p: torch.Tensor | float | None = None,
+        energy: torch.Tensor | float | None = None,
+        total_charge: torch.Tensor | float | None = None,
+        s: torch.Tensor | float | None = None,
+        species: Species | None = None,
+        generator: torch.Generator | None = None,
+        dtype: torch.dtype | None = None,
+        device: torch.device | str | None = None,
+    ) -> "ParticleBeam":
+        """A waterbag beam: uniform in space inside the ellipsoid of the
+        three radii (1 mm each by default), Gaussian in the momenta.
+
+        :param generator: Random number generator for the sample; the global
+            generator of ``device`` when ``None``.
+        """
+        dtype, device = infer_dtype_device(
+            [radius_x, radius_y, radius_tau, sigma_px, sigma_py, sigma_p, energy,
+             total_charge, s],
+            dtype,
+            device,
+        )
+        radius_x, radius_y, radius_tau = (
+            as_float_tensor(radius if radius is not None else 1e-3, dtype=dtype, device=device)
+            for radius in (radius_x, radius_y, radius_tau)
+        )
+        beam = cls.from_parameters(
+            num_particles=num_particles,
+            # The spatial sigmas only give the vector shape: x, y and tau are
+            # drawn anew below.
+            sigma_x=radius_x,
+            sigma_px=sigma_px,
+            sigma_y=radius_y,
+            sigma_py=sigma_py,
+            sigma_tau=radius_tau,
+            sigma_p=sigma_p,
+            energy=energy,
+            total_charge=total_charge,
+            s=s,
+            species=species,
+            generator=generator,
+            dtype=dtype,
+            device=device,
+        )
+        particles = beam.particles
+        shape = particles.shape[:-1]
+
+        def uniform() -> torch.Tensor:
+            return torch.rand(shape, generator=generator, dtype=dtype, device=device)
+
+        # Uniform in the unit ball, in polar coordinates.
+        r = uniform() ** (1.0 / 3.0)
+        theta = torch.arccos(2.0 * uniform() - 1.0)
+        phi = uniform() * (2.0 * math.pi)
+        x = r * torch.sin(theta) * torch.cos(phi) * radius_x[..., None]
+        y = r * torch.sin(theta) * torch.sin(phi) * radius_y[..., None]
+        tau = r * torch.cos(theta) * radius_tau[..., None]
+        beam.particles = torch.stack(
+            [x, particles[..., 1], y, particles[..., 3], tau, particles[..., 5], particles[..., 6]],
+            dim=-1,
+        )
+        return beam
+
+    @classmethod
     def make_linspaced(
         cls,
         num_particles: int = 10,
@@ -558,6 +632,43 @@ class ParticleBeam(Beam):
             species=self.species,
         )
 
+    def randomly_subsampled(
+        self,
+        num_particles: int,
+        adjust_particle_charges: bool = True,
+        generator: torch.Generator | None = None,
+    ) -> "ParticleBeam":
+        """``num_particles`` macroparticles drawn without replacement.
+
+        :param adjust_particle_charges: Scale the charges so that the
+            subsample carries the beam's total charge.
+        :param generator: Random number generator for the draw; the global
+            generator of the beam's device when ``None``.
+        :raises ValueError: if the beam has fewer than ``num_particles``.
+        """
+        if num_particles > self.num_particles:
+            raise ValueError(
+                "Number of particles to sample must be less than or equal to the "
+                "number of particles in the original beam."
+            )
+        device = self.particles.device
+        indices = torch.randperm(self.num_particles, generator=generator, device=device)[
+            :num_particles
+        ]
+        subsampled = self.__class__(
+            self.particles.index_select(-2, indices),
+            self.energy,
+            particle_charges=self.particle_charges.index_select(-1, indices),
+            survival_probabilities=self.survival_probabilities.index_select(-1, indices),
+            s=self.s,
+            species=self.species,
+        )
+        if adjust_particle_charges:
+            subsampled.particle_charges = subsampled.particle_charges * (
+                self.total_charge / subsampled.total_charge
+            )[..., None]
+        return subsampled
+
     def clone(self) -> "ParticleBeam":
         """Copy of the beam with every tensor copied."""
         return self.__class__(
@@ -676,6 +787,38 @@ class ParticleBeam(Beam):
     cov_pxtau = _cov(1, 4, "px-tau")
     cov_ytau = _cov(2, 4, "y-tau")
     cov_pytau = _cov(3, 4, "py-tau")
+
+    def __len__(self) -> int:
+        return int(self.num_particles)
+
+    @property
+    def energies(self) -> torch.Tensor:
+        """Energies of the individual particles in eV."""
+        return self.p * self.p0c[..., None] + self.energy[..., None]
+
+    @property
+    def momenta(self) -> torch.Tensor:
+        """Momenta (times c) of the individual particles in eV."""
+        return torch.sqrt(torch.square(self.energies) - torch.square(self.species.mass_eV))
+
+    def __getitem__(self, item: Any) -> "ParticleBeam":
+        """The beam at ``item`` of its vector dimensions, every tensor
+        broadcast to the beam's vector shape first."""
+        vector_shape = torch.broadcast_shapes(
+            self.particles.shape[:-2],
+            self.energy.shape,
+            self.particle_charges.shape[:-1],
+            self.survival_probabilities.shape[:-1],
+        )
+        n = self.num_particles
+        return self.__class__(
+            self.particles.expand(*vector_shape, n, 7)[item],
+            self.energy.expand(vector_shape)[item],
+            particle_charges=self.particle_charges.expand(*vector_shape, n)[item],
+            survival_probabilities=self.survival_probabilities.expand(*vector_shape, n)[item],
+            s=self.s,
+            species=self.species,
+        )
 
     def __repr__(self) -> str:
         return (

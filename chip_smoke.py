@@ -38,6 +38,13 @@ port's float64 CPU run, with the gradient of sigma_x by a quadrupole's k1;
 and the remaining elements (Solenoid, Undulator, CombinedCorrector, RBend
 in three methods, the transverse deflecting cavity, a merged
 CustomTransferMap, a Superimposed BPM) against the same float64 run.
+Then the eighth slice: a space-charge line built by the structure
+operations (``lattices.cold_beam_line``: a drift split into 20 pieces, 10
+kicks between them, the neighbouring pieces merged), on 32^3 (untiled
+kernels) and 128^3 (x-tiled kernels), 1M particles: the cold beam's
+doubling, the gradient by ``track`` and by ``track_checkpointed`` with
+the launches forward, backward and in the recompute, peak memory at 2 and
+10 kicks both ways, and eager and graph times.
 Every phase prints one JSON line. The last line is
 ``{"ok": true, "device": {...}}``; any failed check raises, so the script
 exits non-zero and prints no such line. It imports neither JAX nor the JAX
@@ -213,6 +220,21 @@ STAGE3_FD_RTOL = 1e-6
 # BPM's reading (the centroid) within 1e-4 of the beam's size.
 NEW_ELEMENT_STD_SHARE = 1e-4
 BPM_READING_TOLERANCE = 1e-4
+# The eighth slice's space-charge line (``lattices.cold_beam_line``): the
+# cold uniform beam doubles in sigma_x, sigma_y and sigma_tau over the line
+# within the JAX package's tolerance (``tests/test_space_charge.py:88-96``)
+# on 32^3; on 128^3 the beam fills about one particle a cell and the ratio
+# is printed, not checked. track_checkpointed's gradient against track's:
+# the deposits it runs again add in another order where their float
+# atomics do, so float32 agrees to 1e-5 or to twice the spread of track's
+# own gradient over 5 runs, whichever is larger, and float64 to 1e-10. The
+# cold beam's sum(px^2) by the first drift's length is a cancelling sum
+# over particles of ~1e-15 momenta: on 128^3, where the tiled deposit adds
+# with float atomics, track's own float32 gradient spread 1.7e-3 to 3.0e-3
+# between runs (PERF.md), so 1e-5 alone cannot hold there.
+SC_LINE_KICKS = 10
+SC_LINE_DOUBLING_RTOL = 2e-2
+SC_LINE_CHECKPOINT_RTOL = {torch.float32: 1e-5, torch.float64: 1e-10}
 
 
 def emit(phase: str, **fields) -> None:
@@ -2138,6 +2160,165 @@ def phase_new_elements(ctt, wrappers) -> None:
                   0.0, False)
     check(reading_error <= BPM_READING_TOLERANCE, f"BPM reading off by {reading_error}")
 
+def _cold_line(ctt, kicks, grid_shape, dtype=torch.float32):
+    return ctt.lattices.cold_beam_line(
+        kicks, grid_shape, NUM_PARTICLES, dtype, "cuda",
+        torch.Generator(device="cuda").manual_seed(SEED),
+    )
+
+
+def _line_value_and_grad(line, beam, length, method):
+    """sum(px^2) after the line and its derivative with respect to the first
+    drift's length, tracked by ``line.<method>``."""
+    line.elements[0].length = length
+    value = torch.sum(torch.square(getattr(line, method)(beam).px))
+    (grad,) = torch.autograd.grad(value, length)
+    return value.detach(), grad
+
+
+def _first_length(line) -> torch.Tensor:
+    return line.elements[0].length.detach().clone().requires_grad_()
+
+
+def _peak_mb(fn) -> float:
+    """Device memory that ``fn`` takes at its peak above what was allocated
+    before it, in MiB."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def phase_sc_line(ctt, wrappers, grid_shape, uses_tiled: bool) -> dict:
+    """The space-charge line of the structure operations
+    (``lattices.cold_beam_line``: ``Drift.split``, 10 kicks inserted,
+    ``with_consecutive_elements_merged``) at 1M particles in float32: its
+    plan (``explain_plan``), the cold beam's doubling, value_and_grad of
+    sum(px^2) by the first drift's length through ``track`` and through
+    ``track_checkpointed`` (launches forward, backward and in the recompute;
+    the two gradients against each other in float32 and float64 on the card,
+    beside the spread of ``track``'s own gradient over runs), peak memory at
+    2 and 10 kicks both ways, CUDA-event and CUDA-graph times and profiles.
+    Returns the launches of the checkpointed value_and_grad."""
+    label = f"sc_line_{grid_shape[0]}"
+    kicks = SC_LINE_KICKS
+    beam, line = _cold_line(ctt, kicks, grid_shape)
+    plan = line.explain_plan().splitlines()
+    check(
+        len(plan) == 2 * kicks + 1 and sum("SpaceChargeKick" in text for text in plan) == kicks,
+        f"{label}: plan {plan}",
+    )
+
+    _reset_launches(wrappers)
+    with torch.no_grad():
+        out = line.track(beam)
+    forward_no_grad = _launches(wrappers)
+    check(bool(torch.isfinite(out.particles).all()), f"{label}: non-finite particles")
+    ratios = {
+        name: (getattr(out, name) / getattr(beam, name)).item()
+        for name in ("sigma_x", "sigma_y", "sigma_tau")
+    }
+
+    kind = "tiled_3d" if uses_tiled else "3d"
+    per_kick = {name: 0 for name in wrappers}
+    forward_expected = per_kick | {f"deposit_multi_{kind}": kicks, f"gather_multi_{kind}": kicks}
+    if uses_tiled:
+        forward_expected["plan_tiles"] = 2 * kicks
+    backward_expected = {
+        "track": per_kick | {f"deposit_multi_{kind}": kicks, f"gather_multi_{kind}": 2 * kicks}
+    }
+    backward_expected["track_checkpointed"] = {
+        name: backward_expected["track"][name] + forward_expected[name] for name in wrappers
+    }
+    check(forward_no_grad == forward_expected, f"{label}: forward launched {forward_no_grad}")
+
+    launches, grads = {}, {}
+    for method in ("track", "track_checkpointed"):
+        length = _first_length(line)
+        _reset_launches(wrappers)
+        line.elements[0].length = length
+        value = torch.sum(torch.square(getattr(line, method)(beam).px))
+        forward = _launches(wrappers)
+        _reset_launches(wrappers)
+        (grad,) = torch.autograd.grad(value, length)
+        backward = _launches(wrappers)
+        check(forward == forward_expected and backward == backward_expected[method],
+              f"{label} {method}: launches forward {forward}, backward {backward}")
+        check(bool(torch.isfinite(grad)) and grad.item() != 0, f"{label}: gradient {grad.item()}")
+        launches[method] = {"forward": forward, "backward": backward}
+        grads[method] = grad.item()
+    recompute = {
+        name: launches["track_checkpointed"]["backward"][name] - launches["track"]["backward"][name]
+        for name in wrappers
+    }
+    repeats = [grads["track"]] + [
+        _line_value_and_grad(line, beam, _first_length(line), "track")[1].item()
+        for _ in range(4)
+    ]
+    spread = (max(repeats) - min(repeats)) / abs(statistics.mean(repeats))
+    f32_diff = abs(grads["track_checkpointed"] - grads["track"]) / abs(grads["track"])
+
+    _, line64 = _cold_line(ctt, kicks, grid_shape, torch.float64)
+    beam64 = beam.to(dtype=torch.float64)
+    grads64 = {
+        method: _line_value_and_grad(line64, beam64, _first_length(line64), method)[1].item()
+        for method in ("track", "track_checkpointed")
+    }
+    del line64, beam64
+    f64_diff = abs(grads64["track_checkpointed"] - grads64["track"]) / abs(grads64["track"])
+
+    peak_mb = {}
+    for count in (2, kicks):
+        counted = line if count == kicks else _cold_line(ctt, count, grid_shape)[1]
+        for method in ("track", "track_checkpointed"):
+            peak_mb[f"{method}_{count}"] = _peak_mb(
+                lambda: _line_value_and_grad(counted, beam, _first_length(counted), method)
+            )
+    per_kick_mb = {
+        method: (peak_mb[f"{method}_{kicks}"] - peak_mb[f"{method}_2"]) / (kicks - 2)
+        for method in ("track", "track_checkpointed")
+    }
+
+    timings = {}
+    length = _first_length(line)
+    for method in ("track", "track_checkpointed"):
+        def step(method=method):
+            return _line_value_and_grad(line, beam, length, method)
+
+        ms = time_ms(step, runs=5, warmup=1)
+        profile = profile_path(f"{label}_{method}", step, ms)
+        timings[method] = {
+            "ms": ms, "graph_ms": graph_ms(step, calls=1, runs=5),
+            "kernel_launches": profile["kernel_launches"],
+            "idle_share": profile["idle_share"], "cic_kernels": profile["cic_kernels"],
+        }
+    emit(
+        label,
+        particles=NUM_PARTICLES, grid=list(grid_shape), kicks=kicks, dtype="float32",
+        plan_entries=len(plan), plan_head=plan[:3], doubling_ratios=ratios,
+        doubling_checked=not uses_tiled, launches=launches, recompute_launches=recompute,
+        grad_track=grads["track"], grad_checkpointed=grads["track_checkpointed"],
+        grad_rel_diff_f32=f32_diff, track_grad_run_spread_f32=spread,
+        grad_track_f64=grads64["track"], grad_checkpointed_f64=grads64["track_checkpointed"],
+        grad_rel_diff_f64=f64_diff, peak_mib=peak_mb, peak_mib_per_kick=per_kick_mb,
+        timings=timings,
+    )
+    if not uses_tiled:
+        for name, ratio in ratios.items():
+            check(abs(ratio - 2.0) / 2.0 <= SC_LINE_DOUBLING_RTOL, f"{label}: {name} grew {ratio}x")
+    check(f32_diff <= max(SC_LINE_CHECKPOINT_RTOL[torch.float32], 2 * spread),
+          f"{label}: checkpointed f32 gradient off by {f32_diff} (track's spread {spread})")
+    check(f64_diff <= SC_LINE_CHECKPOINT_RTOL[torch.float64],
+          f"{label}: checkpointed f64 gradient off by {f64_diff}")
+    return {
+        name: launches["track_checkpointed"]["forward"][name]
+        + launches["track_checkpointed"]["backward"][name]
+        for name in wrappers
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; none is available.", file=sys.stderr)
@@ -2174,11 +2355,17 @@ def main() -> int:
     phase_func_transforms(ctt, wrappers, cic_kernels, cic_tiled)
     phase_ares_stage3(ctt, wrappers)
     phase_new_elements(ctt, wrappers)
+    line_launches = {
+        grid[0]: phase_sc_line(ctt, wrappers, grid, cic_kernels.uses_tiled(grid))
+        for grid in ((32, 32, 32), (128, 128, 128))
+    }
 
     def entry(name, source, replaces, measured, **extra):
         by_path = {"space_charge_segment": segment_launches[name],
-                   "sc_grad_32": grad_launches[32][name], "sc_grad_128": grad_launches[128][name]}
-        launches = by_path["sc_grad_32"] + by_path["sc_grad_128"]
+                   "sc_grad_32": grad_launches[32][name], "sc_grad_128": grad_launches[128][name],
+                   "sc_line_32": line_launches[32][name], "sc_line_128": line_launches[128][name]}
+        launches = sum(by_path[path] for path in
+                       ("sc_grad_32", "sc_grad_128", "sc_line_32", "sc_line_128"))
         check(launches > 0, f"{name} was not launched on its path")
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -443,8 +443,16 @@ def test_get_beam_attrs_along_segment():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-9, atol=1e-18,
                                    err_msg=name)
     assert segment.get_beam_attrs_along_segment("s", beam_to_torch(jax_beam)).shape == (9,)
-    with pytest.raises(NotImplementedError, match="split"):
-        segment.get_beam_attrs_along_segment("s", beam_to_torch(jax_beam), resolution=0.1)
+    # resolution= splits the elements first, as in the JAX package (run
+    # eagerly there: the split counts its pieces on the host).
+    split_names = ("s", "sigma_x")
+    actual = segment.get_beam_attrs_along_segment(split_names, beam_to_torch(jax_beam),
+                                                  resolution=0.1)
+    expected = jax_segment.get_beam_attrs_along_segment(split_names, jax_beam, resolution=0.1)
+    for name, got, want in zip(split_names, actual, expected):
+        assert got.shape == want.shape and got.shape[-1] > 9, name
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-9, atol=1e-18,
+                                   err_msg=name)
 
 
 def test_grad_screen_centroid_matches_jax():
