@@ -16,6 +16,14 @@ cell centres (``(pos - left) * scale - 0.5``) and the gather uses nodes
 (``(pos + grid_dimensions) / cell_size``). The JAX package's two gathers
 (two-hot contraction and 8-corner take) compute the same trilinear values;
 the port has one.
+
+With ``particle_axis`` the kick runs explicit SPMD over the particle axis
+(the JAX package's ``shard_map`` mode): each rank tracks its own particles,
+and two differentiable all-reduces
+(:func:`cheetah_tpu_torch.parallel.collectives.all_reduce`) join them, the
+sums of the grid-sizing moments and the deposited grid. The deposit, the
+replicated Poisson solve and the gather run on the rank's own tensors, on
+the same kernels as without the axis.
 """
 
 from __future__ import annotations
@@ -32,6 +40,15 @@ from cheetah_tpu_torch.ops.cloud_in_cell import cloud_in_cell_charge_deposition,
 from cheetah_tpu_torch.particles import ParticleBeam
 
 
+def _all_reduce(tensor: torch.Tensor, axis) -> torch.Tensor:
+    """:func:`cheetah_tpu_torch.parallel.collectives.all_reduce`, imported
+    on first use: the multi-device layer (``torch.distributed``'s meshes and
+    tensors) is not loaded with the package."""
+    from cheetah_tpu_torch.parallel import collectives
+
+    return collectives.all_reduce(tensor, axis)
+
+
 @functools.lru_cache(maxsize=None)
 def _momentum_columns(device: torch.device) -> torch.Tensor:
     return torch.tensor([1, 3, 5], device=device)
@@ -46,9 +63,24 @@ class SpaceChargeKick(Element):
     :param grid_extent_y: Grid half-extent in y as a multiple of sigma_y.
     :param grid_extent_tau: Grid half-extent in tau as a multiple of
         sigma_tau.
+    :param particle_axis: The axis over which the beam's particles are
+        sharded: a mesh axis name, a tuple of names (resolved on the mesh of
+        :func:`cheetah_tpu_torch.parallel.active_mesh`) or a
+        ``torch.distributed`` process group. Each rank then passes its own
+        particles; the grid-sizing moment sums and the deposited grid are
+        all-reduced over the axis, and the rest stays local. ``None`` (the
+        default): the beam holds all the particles.
     :param name: Unique identifier of the element.
     :param device: Device for parameters given as Python numbers; the GPU
         when ``None``.
+
+    Gradients with ``particle_axis``: each rank calls backward on its own
+    share of the loss (the terms of its own particles, scaled as in the
+    global loss, e.g. divided by the global particle count); the kick's
+    all-reduces carry the other ranks' terms in backward; then the
+    gradients of replicated parameters (``effect_length``, a ``k1``) are
+    all-reduced (summed) over the axis. Backward on an all-reduced global
+    loss instead counts it once per rank.
     """
 
     def __init__(
@@ -58,6 +90,7 @@ class SpaceChargeKick(Element):
         grid_extent_x: torch.Tensor | float | None = None,
         grid_extent_y: torch.Tensor | float | None = None,
         grid_extent_tau: torch.Tensor | float | None = None,
+        particle_axis=None,
         name: str | None = None,
         sanitize_name: bool | None = None,
         metadata: dict | None = None,
@@ -74,6 +107,7 @@ class SpaceChargeKick(Element):
             grid_extent_tau=grid_extent_tau if grid_extent_tau is not None else 3.0,
         )
         self.grid_shape = tuple(int(n) for n in grid_shape)
+        self.particle_axis = particle_axis
         self._init_element(name, sanitize_name, metadata)
 
     @property
@@ -83,6 +117,31 @@ class SpaceChargeKick(Element):
     @property
     def is_skippable(self) -> bool:
         return False
+
+    def clone(self) -> "SpaceChargeKick":
+        cloned = super().clone()
+        cloned.particle_axis = self.particle_axis
+        return cloned
+
+    def _global_weighted_std(self, values: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+        """Unbiased weighted std over the rank's particles (the last
+        dimension) combined over ``particle_axis``: the moment-sum form of
+        ``unbiased_weighted_std``, exact up to rounding, its four sums
+        all-reduced in one call. ``values`` may stack several quantities in
+        front of ``weights``' dimensions."""
+        weights = weights.expand_as(values)
+        sums = torch.stack(
+            [
+                torch.sum(weights, dim=-1),
+                torch.sum(weights * values, dim=-1),
+                torch.sum(weights * torch.square(values), dim=-1),
+                torch.sum(torch.square(weights), dim=-1),
+            ]
+        )
+        sw, swx, swx2, sw2 = _all_reduce(sums, self.particle_axis)
+        mean = swx / sw
+        correction = sw - sw2 / sw
+        return torch.sqrt((swx2 - sw * torch.square(mean)) / correction)
 
     # ------------------------------------------------------------------
     # Green function
@@ -167,6 +226,9 @@ class SpaceChargeKick(Element):
             extent=torch.stack([-grid_dimensions, grid_dimensions], dim=-1),
             charges=beam.particle_charges * beam.survival_probabilities,
         )
+        if self.particle_axis is not None:
+            # Each rank deposited its own particles; the grid is their sum.
+            charge_grid = _all_reduce(charge_grid, self.particle_axis)
         # Not torch.prod: its backward looks for zero factors with
         # ``nonzero``, a device sync in every backward that no CUDA graph
         # can capture.
@@ -283,12 +345,21 @@ class SpaceChargeKick(Element):
         )
         effect_length = self.effect_length.expand(vector_shape).reshape(-1)
 
-        # Grid geometry from the beam sigmas (the single-pass raw moments).
+        # Grid geometry from the beam sigmas (the single-pass raw moments);
+        # over a particle axis, from the global moments, so that every rank
+        # sizes the same grid.
+        if self.particle_axis is not None:
+            sigma_x, sigma_y, sigma_tau = self._global_weighted_std(
+                torch.stack([flattened.x, flattened.y, flattened.tau]),
+                flattened.survival_probabilities,
+            )
+        else:
+            sigma_x, sigma_y, sigma_tau = flattened.sigma_x, flattened.sigma_y, flattened.sigma_tau
         grid_dimensions = torch.stack(
             [
-                self.grid_extent_x * flattened.sigma_x,
-                self.grid_extent_y * flattened.sigma_y,
-                self.grid_extent_tau * flattened.sigma_tau,
+                self.grid_extent_x * sigma_x,
+                self.grid_extent_y * sigma_y,
+                self.grid_extent_tau * sigma_tau,
             ],
             dim=-1,
         )

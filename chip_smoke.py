@@ -45,6 +45,16 @@ kernels) and 128^3 (x-tiled kernels), 1M particles: the cold beam's
 doubling, the gradient by ``track`` and by ``track_checkpointed`` with
 the launches forward, backward and in the recompute, peak memory at 2 and
 10 kicks both ways, and eager and graph times.
+Then the multi-device slice, on a ``torch.distributed`` process group of
+one rank over NCCL: ``BatchedLatticeEnv`` at BASELINE config 5's width
+(4096 instances of the five ARES EA tunables, 10k particles) against
+``segment.track`` with the same settings and the port's float64 CPU run,
+its ``grad_step`` and ``moments_only`` step; and the space-charge
+gradient with both kicks over a particle axis, whose all-reduces launch,
+on 32^3 and 128^3, against the unsharded run with the collectives' bytes
+audited; last two processes over gloo on the one card (NCCL refuses two
+ranks on one device), each with half the instances and half the
+particles, against the one-process run.
 Every phase prints one JSON line. The last line is
 ``{"ok": true, "device": {...}}``; any failed check raises, so the script
 exits non-zero and prints no such line. It imports neither JAX nor the JAX
@@ -59,6 +69,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -235,6 +246,40 @@ BPM_READING_TOLERANCE = 1e-4
 SC_LINE_KICKS = 10
 SC_LINE_DOUBLING_RTOL = 2e-2
 SC_LINE_CHECKPOINT_RTOL = {torch.float32: 1e-5, torch.float64: 1e-10}
+# The multi-device slice. BASELINE config 5's env: 4096 instances of the
+# five ARES EA tunables, settings from numpy (k1 in +-20, angles in
+# +-1e-3 rad). env.step against segment.track with the same settings
+# assigned runs the same operations on the same card: rtol 1e-6. Against
+# the port's float64 CPU run, sigma_x and sigma_y of each instance to rtol
+# 1e-4 (section 2 of PERF.md) times 1 + (mu / sigma)^2, the amplification
+# of the float32 sums by the raw-moment variance E[x^2] - mu^2 (ROADMAP
+# Queue 3) once the correctors move the beam off axis: on the CPU in
+# float32, 1.1e-3 at (mu / sigma)^2 = 760 and 1.2e-5 on axis. The k1
+# gradients, column by column against the column's largest, to 1e-4; the
+# angle gradients are zero by construction (a centroid shift leaves sigma
+# unchanged): in float64 below 1e-9 of the reward over a 1e-3 rad step, in
+# float32 within the reward's own bound over that step.
+ENV_TUNABLES = (("AREAMQZM1", "k1"), ("AREAMQZM2", "k1"), ("AREAMQZM3", "k1"),
+                ("AREAMCVM1", "angle"), ("AREAMCHM1", "angle"))
+ENV_INSTANCES = 4096
+ENV_ANGLE_RANGE = 1e-3
+ENV_LEARNING_RATE = 1e4
+ENV_SAME_RTOL = 1e-6
+ENV_ANGLE_ZERO_F64 = 1e-9
+# Two ranks over gloo on the one card: each rank's rows of the env against
+# the one-process 4096-instance run. cuBLAS adds a batch of 2048 in another
+# order than one of 4096, so the rows are not bit-equal (measured on one
+# H100: rewards up to 5e-4 apart, 1.2e-6 times 1 + (mu / sigma)^2), and the
+# raw-moment variance amplifies that order's float32 rounding as in the
+# float64 comparison above: two orders of a 10k-term float32 sum differ by
+# up to sqrt(10k) * eps relative, times 1 + (mu / sigma)^2 of the
+# instance. The k1 gradients the same, against their column's largest; the
+# angle gradients (zero by construction) within the reward's bound. The
+# env's grad step moves at most 4096 bytes across ranks (one mean reward,
+# not the particles).
+TWO_RANK_ENV_RTOL = 100 * torch.finfo(torch.float32).eps
+AUDIT_READOUT_BYTES = 4096
+TWO_RANK_TIMEOUT_S = 300
 
 
 def emit(phase: str, **fields) -> None:
@@ -2319,6 +2364,420 @@ def phase_sc_line(ctt, wrappers, grid_shape, uses_tiled: bool) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# The multi-device slice
+# ---------------------------------------------------------------------------
+
+
+def _env_settings() -> np.ndarray:
+    """The 4096 instances' settings of the five tunables, from numpy."""
+    rng = np.random.default_rng(SEED)
+    return np.concatenate(
+        [rng.uniform(-20, 20, (ENV_INSTANCES, 3)),
+         rng.uniform(-ENV_ANGLE_RANGE, ENV_ANGLE_RANGE, (ENV_INSTANCES, 2))],
+        axis=1,
+    )
+
+
+def _env(parallel, dtype, device, beam, **kw):
+    from cheetah_tpu_torch.lattices import ares_ea_subcell
+
+    return parallel.BatchedLatticeEnv(ares_ea_subcell(dtype, device=device), beam, ENV_TUNABLES,
+                                      **kw)
+
+
+def _reward_and_grad(env, settings):
+    """The env's outgoing beam and reward, and d sum(reward) / d settings."""
+    settings = settings.detach().requires_grad_()
+    outgoing, _, reward = env.step(settings)
+    (grad,) = torch.autograd.grad(reward.sum(), settings)
+    return outgoing, reward.detach(), grad
+
+
+def _column_errors(actual: torch.Tensor, expected: torch.Tensor) -> list:
+    """Per column: max |actual - expected| over that of |expected|."""
+    actual, expected = actual.double().cpu(), expected.double().cpu()
+    return ((actual - expected).abs().amax(0) / expected.abs().amax(0)).tolist()
+
+
+def _amplification(outgoing) -> torch.Tensor:
+    """1 + (mu / sigma)^2 of each instance, the larger of x and y: how much
+    the raw-moment variance amplifies the rounding of its float32 sums."""
+    return 1 + torch.maximum((outgoing.mu_x / outgoing.sigma_x) ** 2,
+                             (outgoing.mu_y / outgoing.sigma_y) ** 2).detach()
+
+
+def phase_batched_env(ctt, parallel, wrappers) -> None:
+    """``BatchedLatticeEnv`` at BASELINE config 5's width on the NCCL
+    process group of one rank: 4096 instances of the five ARES EA tunables,
+    the bench beam of 10k particles, f32. ``step`` against ``segment.track``
+    with the settings assigned; sigma and the gradient against the port's
+    float64 CPU run at 16 instances; ``grad_step`` against the gradient;
+    ``moments_only`` with a ParameterBeam; eager times and profiles."""
+    from cheetah_tpu_torch.lattices import ares_ea_subcell
+
+    mesh = parallel.make_mesh({"instances": 1})
+    settings = torch.tensor(_env_settings(), dtype=torch.float32, device="cuda")
+    beam = _bench_beam(ctt, 10_000, "cuda", torch.Generator(device="cuda").manual_seed(SEED))
+    env = _env(parallel, torch.float32, "cuda", beam)
+
+    _reset_launches(wrappers)
+    outgoing, readings, reward = env.step(settings)
+    launches = _no_cic_launches(wrappers, "the batched env step")
+    check(tuple(reward.shape) == (ENV_INSTANCES,) and readings == {}, "env step shapes")
+    check(bool(torch.isfinite(reward).all()), "non-finite env reward")
+
+    plain = ares_ea_subcell(torch.float32)
+    for index, (name, attribute) in enumerate(ENV_TUNABLES):
+        setattr(getattr(plain, name), attribute, settings[:, index])
+    tracked = plain.track(beam)
+    same = max(
+        ((getattr(outgoing, name) - getattr(tracked, name)).abs()
+         / getattr(tracked, name)).max().item()
+        for name in ("sigma_x", "sigma_y")
+    )
+    bit_equal = bool(torch.equal(outgoing.particles, tracked.particles))
+    del tracked, plain
+
+    _, reward_g, grad = _reward_and_grad(env, settings)
+    stepped, step_reward = env.grad_step(settings, ENV_LEARNING_RATE)
+    step_error = relative_error(stepped, settings + ENV_LEARNING_RATE * grad)[1]
+    check(torch.equal(step_reward, reward_g), "grad_step's reward differs from step's")
+
+    picks = torch.linspace(0, ENV_INSTANCES - 1, 16).round().long()
+    env64 = _env(parallel, torch.float64, "cpu", beam.to("cpu", torch.float64))
+    outgoing64, reward64, grad64 = _reward_and_grad(env64, settings[picks.cuda()].cpu().double())
+    picked = ctt.ParticleBeam(outgoing.particles[picks.cuda()], outgoing.energy)
+    bound = ENV_STEP_RTOL * _amplification(outgoing64)
+    sigma_errors = {
+        axis: (getattr(picked, f"sigma_{axis}").double().cpu()
+               - getattr(outgoing64, f"sigma_{axis}")).abs()
+        / getattr(outgoing64, f"sigma_{axis}")
+        for axis in ("x", "y")
+    }
+    within = all(bool((error <= bound).all()) for error in sigma_errors.values())
+    # Instances whose beam is near the axis, (mu / sigma)^2 <= 1.
+    near = bound <= 2 * ENV_STEP_RTOL
+    on_axis = max(error[near].max().item() for error in sigma_errors.values()) if near.any() else None
+    grad_errors = _column_errors(grad[picks.cuda()], grad64)
+    angle_scale = ENV_ANGLE_RANGE / reward64.abs()
+    angle64 = (grad64[:, 3:].abs() * angle_scale[:, None]).max().item()
+    angle32 = ((grad[picks.cuda(), 3:].double().cpu().abs() * angle_scale[:, None])
+               / bound[:, None]).max().item()
+    audit = parallel.collective_report(lambda: env.grad_step(settings, ENV_LEARNING_RATE), mesh,
+                                       dcn_axes=("instances",))
+
+    parameter_beam = ctt.ParameterBeam.from_twiss(
+        beta_x=5.0, emittance_x=2e-9, beta_y=3.0, emittance_y=2e-9, energy=1.54e8,
+        dtype=torch.float32, device="cuda",
+    )
+    env_moments = _env(parallel, torch.float32, "cuda", parameter_beam, moments_only=True)
+    _reset_launches(wrappers)
+    outgoing_m, _, reward_m = env_moments.step(settings)
+    moments_launches = _no_cic_launches(wrappers, "the moments-only env step")
+    check(isinstance(outgoing_m, ctt.ParameterBeam), f"moments_only gave {type(outgoing_m)}")
+    env_m64 = _env(parallel, torch.float64, "cpu", parameter_beam.to("cpu", torch.float64),
+                   moments_only=True)
+    reward_m64 = env_m64.reward(settings[picks.cuda()].cpu().double())
+    moments_error = ((reward_m[picks.cuda()].double().cpu() - reward_m64).abs()
+                     / reward_m64.abs()).max().item()
+
+    def step():
+        return env.step(settings)[2]
+
+    def grad_step():
+        return env.grad_step(settings, ENV_LEARNING_RATE)
+
+    timings = {}
+    for name, fn in (("step", step), ("grad_step", grad_step),
+                     ("moments_only_step", lambda: env_moments.step(settings)[2])):
+        ms = time_ms(fn, runs=10)
+        profile = profile_path(f"batched_env_{name}", fn, ms)
+        timings[name] = {"ms": ms, "kernel_launches": profile["kernel_launches"],
+                         "idle_share": profile["idle_share"]}
+    emit(
+        "batched_env",
+        instances=ENV_INSTANCES, particles=10_000, tunables=[list(t) for t in ENV_TUNABLES],
+        dtype="float32", step_vs_track_rel=same, step_bit_equal_to_track=bit_equal,
+        grad_step_vs_grad_rel=step_error,
+        sigma_rel_err_vs_cpu_f64={axis: error.max().item() for axis, error in sigma_errors.items()},
+        sigma_bound_max=bound.max().item(),
+        sigma_rel_err_on_axis=on_axis, k1_grad_col_err_vs_cpu_f64=grad_errors[:3],
+        angle_grad_f64_share=angle64, angle_grad_f32_share_of_bound=angle32,
+        moments_only_reward_rel_err_vs_cpu_f64=moments_error,
+        cic_kernel_launches={"step": launches, "moments_only": moments_launches},
+        grad_step_collectives=len(audit.ops), timings=timings,
+    )
+    check(same <= ENV_SAME_RTOL, f"env.step against segment.track off by {same}")
+    check(step_error <= ENV_SAME_RTOL, f"grad_step against its gradient off by {step_error}")
+    check(within, f"env sigma off its raw-moment bound: {sigma_errors}, bound {bound}")
+    check(max(grad_errors[:3]) <= ENV_GRAD_TOLERANCE, f"env k1 gradients off by {grad_errors}")
+    check(angle64 <= ENV_ANGLE_ZERO_F64, f"f64 angle gradients not zero: {angle64}")
+    check(angle32 <= 1.0, f"f32 angle gradients past the reward's bound: {angle32}")
+    check(moments_error <= PARAMETER_BEAM_RTOL, f"moments-only reward off by {moments_error}")
+    check(not audit.ops, f"the env's grad step issued collectives: {audit.ops}")
+
+
+def _sharded_segment(ctt, dtype, grid_shape, axis):
+    """The space-charge segment of ``_sc_segment`` with both kicks over
+    ``axis``."""
+    segment = _sc_segment(ctt, dtype, "cuda", grid_shape)
+    for element in segment.elements[1::2]:
+        element.particle_axis = axis
+    return segment
+
+
+def _value_and_grad_launches(wrappers, segment, beam):
+    """sum(px^2) and its derivative by the first drift's length, with the
+    CIC launches of the forward and of the backward."""
+    length = torch.tensor(0.1, dtype=beam.particles.dtype, device="cuda", requires_grad=True)
+    segment.elements[0].length = length
+    _reset_launches(wrappers)
+    value = torch.sum(torch.square(segment.track(beam).px))
+    forward = _launches(wrappers)
+    _reset_launches(wrappers)
+    (grad,) = torch.autograd.grad(value, length)
+    return value.detach(), grad, forward, _launches(wrappers)
+
+
+def phase_sc_sharded(ctt, parallel, wrappers, grid_shape) -> dict:
+    """``SpaceChargeKick(particle_axis="particles")`` on the NCCL process
+    group of one rank, where the all-reduces really launch: the 1M bench
+    beam's kick against the unsharded kick; the space-charge segment's
+    value_and_grad with both kicks sharded, its launches equal to the
+    unsharded segment's and its gradient equal within section 2's limits
+    in f32 and f64; the audit's bytes (the moment sums and the grid, per
+    kick, forward and backward); the all-reduce's time. Returns the CIC
+    launches of the sharded value_and_grad."""
+    from cheetah_tpu_torch.parallel import collectives, comm_audit
+
+    label = f"sc_sharded_{grid_shape[0]}"
+    mesh = parallel.make_mesh({"particles": 1})
+    beam = _bench_beam(ctt, NUM_PARTICLES, "cuda", torch.Generator(device="cuda").manual_seed(SEED))
+    with parallel.active_mesh(mesh):
+        sharded_kick = ctt.SpaceChargeKick(0.2, grid_shape=grid_shape, particle_axis="particles",
+                                           dtype=torch.float32)
+        _reset_launches(wrappers)
+        out = sharded_kick.track(beam)
+        kick_launches = _launches(wrappers)
+    _reset_launches(wrappers)
+    reference = ctt.SpaceChargeKick(0.2, grid_shape=grid_shape, dtype=torch.float32).track(beam)
+    check(kick_launches == _launches(wrappers), f"{label}: the sharded kick launched {kick_launches}")
+    kick_errors = _check_kicks(label, beam, out, reference.to("cpu", torch.float64))
+    del out, reference
+
+    results = {}
+    for dtype in (torch.float32, torch.float64):
+        typed = beam if dtype == torch.float32 else beam.to(dtype=dtype)
+        with parallel.active_mesh(mesh), collectives.recording() as lines:
+            sharded = _value_and_grad_launches(wrappers, _sharded_segment(ctt, dtype, grid_shape,
+                                                                          "particles"), typed)
+        unsharded = _value_and_grad_launches(wrappers, _sc_segment(ctt, dtype, "cuda", grid_shape),
+                                             typed)
+        check(sharded[2:] == unsharded[2:],
+              f"{label}: launches {sharded[2:]} sharded, {unsharded[2:]} unsharded")
+        results[dtype] = {
+            "grad": sharded[1].item(), "grad_unsharded": unsharded[1].item(),
+            "grad_rel_diff": abs(sharded[1].item() - unsharded[1].item()) / abs(unsharded[1].item()),
+            "value_rel_diff": abs(sharded[0].item() - unsharded[0].item()) / abs(unsharded[0].item()),
+            "launches": {"forward": sharded[2], "backward": sharded[3]}, "lines": lines,
+        }
+    f32, f64 = results[torch.float32], results[torch.float64]
+    report = comm_audit.CollectiveReport(comm_audit.parse_collectives("\n".join(f32["lines"]), mesh),
+                                         ("particles",))
+    per_kick = (4 * 3 + math.prod(grid_shape)) * 4
+    expected_bytes = 2 * 2 * per_kick  # two kicks, forward and backward
+
+    grid = torch.zeros((1, *grid_shape), device="cuda")
+    with parallel.active_mesh(mesh):
+        all_reduce_ms = time_ms(lambda: collectives.all_reduce(grid, "particles"), per_event=10)
+    length = torch.tensor(0.1, device="cuda", requires_grad=True)
+    segment = _sharded_segment(ctt, torch.float32, grid_shape, "particles")
+    plain = _sc_segment(ctt, torch.float32, "cuda", grid_shape)
+
+    def sharded_step():
+        with parallel.active_mesh(mesh):
+            return _sc_value_and_grad(segment, beam, 0.1)
+
+    ms = time_ms(sharded_step, runs=10, warmup=2)
+    profile = profile_path(label, sharded_step, ms)
+    emit(
+        label,
+        particles=NUM_PARTICLES, grid=list(grid_shape), backend=str(torch.distributed.get_backend()),
+        world_size=torch.distributed.get_world_size(),
+        kick_rms_rel_err_vs_unsharded=kick_errors, kick_launches=kick_launches,
+        grad_f32=f32["grad"], grad_f32_unsharded=f32["grad_unsharded"],
+        grad_f32_rel_diff=f32["grad_rel_diff"], value_f32_rel_diff=f32["value_rel_diff"],
+        grad_f64_rel_diff=f64["grad_rel_diff"], launches=f32["launches"],
+        collectives=[op.line for op in report.ops], audit_bytes=report.total_bytes,
+        audit_bytes_expected=expected_bytes, nccl_grid_all_reduce_ms=all_reduce_ms,
+        grid_bytes=math.prod(grid_shape) * 4, ms=ms,
+        unsharded_ms=time_ms(lambda: _sc_value_and_grad(plain, beam, 0.1), runs=10, warmup=2),
+        idle_share=profile["idle_share"], kernel_launches=profile["kernel_launches"],
+        cic_kernels=profile["cic_kernels"],
+    )
+    check(f32["grad_rel_diff"] <= SC_GRAD_F32_RTOL[grid_shape],
+          f"{label}: f32 gradient off the unsharded one by {f32['grad_rel_diff']}")
+    check(f64["grad_rel_diff"] <= SC_GRAD_F64_RTOL,
+          f"{label}: f64 gradient off the unsharded one by {f64['grad_rel_diff']}")
+    check(len(report.ops) == 8 and report.total_bytes == expected_bytes,
+          f"{label}: audit {report.total_bytes} bytes in {len(report.ops)} collectives")
+    return {name: f32["launches"]["forward"][name] + f32["launches"]["backward"][name]
+            for name in wrappers}
+
+
+def _share_of_bound(actual, expected, amplification, scale=None) -> float:
+    """max |actual - expected| / (scale * TWO_RANK_ENV_RTOL * amplification),
+    scale |expected| unless given."""
+    scale = expected.abs() if scale is None else scale
+    return ((actual - expected).abs() / (scale * TWO_RANK_ENV_RTOL * amplification)).max().item()
+
+
+def _angle_share(grad, reward, amplification) -> float:
+    """The angle gradients (zero by construction) over a 1e-3 rad step,
+    as a share of the reward's float32 bound."""
+    return ((grad[:, 3:].abs() * ENV_ANGLE_RANGE / reward.abs()[:, None])
+            / (ENV_STEP_RTOL * amplification[:, None])).max().item()
+
+
+def _two_rank_worker(rank: int, store: str, directory: str) -> None:
+    """One of two ranks over gloo on the one card (``phase_two_rank``): the
+    env over the instance axis and the kick over the particle axis, each
+    against the one-process run on the card; writes its results as JSON."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=2)
+    import cheetah_tpu_torch as ctt
+    from cheetah_tpu_torch import parallel
+    from cheetah_tpu_torch.parallel import collectives
+
+    results = {}
+    instances = parallel.make_mesh({"instances": 2})
+    beam = _bench_beam(ctt, 10_000, "cuda", torch.Generator(device="cuda").manual_seed(SEED))
+    settings = torch.tensor(_env_settings(), dtype=torch.float32, device="cuda")
+    env = _env(parallel, torch.float32, "cuda", beam)
+    outgoing, reward_full, grad_full = _reward_and_grad(env, settings)
+    index, size = collectives.axis_index(instances, "instances")
+    rows = settings.chunk(size)[index]
+    _, reward, grad = _reward_and_grad(env, rows)
+    with parallel.active_mesh(instances):
+        gathered = collectives.all_gather(reward, "instances")
+    amplification = _amplification(outgoing)
+    own = slice(index * rows.shape[0], (index + 1) * rows.shape[0])
+    results["env"] = {
+        "rows": list(rows.shape),
+        "bit_equal": bool(torch.equal(reward, reward_full[own]) and torch.equal(grad, grad_full[own])),
+        "reward_rel_max": ((reward - reward_full[own]).abs() / reward_full[own].abs()).max().item(),
+        "reward_share_of_bound": _share_of_bound(reward, reward_full[own], amplification[own]),
+        "gathered_share_of_bound": _share_of_bound(gathered, reward_full, amplification),
+        "k1_grad_share_of_bound": _share_of_bound(grad[:, :3], grad_full[own, :3],
+                                                  amplification[own, None],
+                                                  grad_full[:, :3].abs().amax(0)),
+        "angle_grad_share_of_bound": max(
+            _angle_share(grad, reward, amplification[own]),
+            _angle_share(grad_full, reward_full, amplification),
+        ),
+    }
+    report = parallel.collective_report(
+        lambda: collectives.all_reduce(env.grad_step(rows, ENV_LEARNING_RATE)[1].sum(), "instances"),
+        instances, dcn_axes=("instances",),
+    )
+    results["env"]["audit"] = {"lines": [op.line for op in report.ops],
+                               "cross_bytes": report.dcn_bytes}
+    del env, reward_full, grad_full
+
+    particles = parallel.make_mesh({"particles": 2})
+    big = _bench_beam(ctt, NUM_PARTICLES, "cuda", torch.Generator(device="cuda").manual_seed(SEED))
+    local = parallel.shard_beam(big, particles, particle_axis="particles")
+    for grid_shape in ((32, 32, 32), (128, 128, 128)):
+        label = f"{grid_shape[0]}"
+        with parallel.active_mesh(particles):
+            kicked = ctt.SpaceChargeKick(0.2, grid_shape=grid_shape, particle_axis="particles",
+                                         dtype=torch.float32).track(local)
+        reference = ctt.SpaceChargeKick(0.2, grid_shape=grid_shape, dtype=torch.float32).track(big)
+        rows_reference = parallel.shard_beam(reference, particles, particle_axis="particles")
+        kick_errors = _check_kicks(f"rank {rank} {label}^3 kick", local, kicked,
+                                   rows_reference.to("cpu", torch.float64))
+        grads = {}
+        for dtype in (torch.float32, torch.float64):
+            typed_local = local if dtype == torch.float32 else local.to(dtype=dtype)
+            with parallel.active_mesh(particles), collectives.recording() as lines:
+                value, grad = _sc_value_and_grad(
+                    _sharded_segment(ctt, dtype, grid_shape, "particles"), typed_local, 0.1)
+                value = collectives.all_reduce(value, "particles")
+                grad = collectives.all_reduce(grad, "particles")
+            typed = big if dtype == torch.float32 else big.to(dtype=dtype)
+            value_one, grad_one = _sc_value_and_grad(_sc_segment(ctt, dtype, "cuda", grid_shape),
+                                                     typed, 0.1)
+            grads[str(dtype).split(".")[1]] = {
+                "grad": grad.item(), "grad_one_process": grad_one.item(),
+                "grad_rel": abs(grad.item() - grad_one.item()) / abs(grad_one.item()),
+                "value_rel": abs(value.item() - value_one.item()) / abs(value_one.item()),
+                "audit_bytes": parallel.collective_report("\n".join(lines), particles).total_bytes,
+            }
+        buffer = torch.zeros((1, *grid_shape), device="cuda")
+        with parallel.active_mesh(particles):
+            gloo_ms = time_ms(lambda: collectives.all_reduce(buffer, "particles"), runs=10)
+        results[label] = {"kick_rms_rel_err": kick_errors, "gradients": grads,
+                          "gloo_grid_all_reduce_ms": gloo_ms}
+        del kicked, reference, rows_reference
+    with open(f"{directory}/rank{rank}.json", "w") as handle:
+        json.dump(results, handle)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_two_rank() -> None:
+    """Two processes on the one card over gloo (``torch.multiprocessing``
+    and a file store): NCCL refuses two ranks on one device, and gloo
+    all-reduces and broadcasts CUDA tensors. Each rank's env rows, kicks
+    and gradients against the one-process run, and the audit's bytes."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as directory:
+        context = mp.spawn(_two_rank_worker, args=(f"{directory}/store", directory), nprocs=2,
+                           join=False)
+        deadline = time.monotonic() + TWO_RANK_TIMEOUT_S
+        while not context.join(timeout=5):
+            if time.monotonic() > deadline:
+                for process in context.processes:
+                    process.kill()
+                raise AssertionError(f"two_rank: ranks still running after {TWO_RANK_TIMEOUT_S} s")
+        ranks = []
+        for rank in range(2):
+            with open(f"{directory}/rank{rank}.json") as handle:
+                ranks.append(json.load(handle))
+    emit("two_rank", backend="gloo", world_size=2, seconds=time.perf_counter() - start,
+         ranks=ranks)
+    for rank, result in enumerate(ranks):
+        env = result["env"]
+        shares = {name: env[name] for name in ("reward_share_of_bound", "gathered_share_of_bound",
+                                               "k1_grad_share_of_bound", "angle_grad_share_of_bound")}
+        check(max(shares.values()) <= 1.0, f"two_rank {rank}: env rows past their bounds: {shares}")
+        check(env["audit"]["cross_bytes"] <= AUDIT_READOUT_BYTES,
+              f"two_rank {rank}: the env's grad step moved {env['audit']['cross_bytes']} bytes")
+        for grid_shape in ((32, 32, 32), (128, 128, 128)):
+            case = result[f"{grid_shape[0]}"]
+            per_kick = (4 * 3 + math.prod(grid_shape))
+            for dtype, limit in (("float32", SC_GRAD_F32_RTOL[grid_shape]),
+                                 ("float64", SC_GRAD_F64_RTOL)):
+                gradient = case["gradients"][dtype]
+                check(gradient["grad_rel"] <= limit,
+                      f"two_rank {rank} {grid_shape}: {dtype} gradient off by {gradient['grad_rel']}")
+                width = 4 if dtype == "float32" else 8
+                # Two kicks, forward and backward, plus the loss and its gradient.
+                expected = 2 * 2 * per_kick * width + 2 * width
+                check(gradient["audit_bytes"] == expected,
+                      f"two_rank {rank} {grid_shape}: audit {gradient['audit_bytes']} bytes, "
+                      f"not {expected}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; none is available.", file=sys.stderr)
@@ -2359,13 +2818,35 @@ def main() -> int:
         grid[0]: phase_sc_line(ctt, wrappers, grid, cic_kernels.uses_tiled(grid))
         for grid in ((32, 32, 32), (128, 128, 128))
     }
+    # The multi-device slice: a process group of one rank over NCCL, then
+    # two ranks over gloo on the same card.
+    import shutil
+    import tempfile
+
+    from cheetah_tpu_torch import parallel
+
+    store = tempfile.mkdtemp()
+    parallel.initialize(f"file://{store}/store", 1, 0)
+    phase_batched_env(ctt, parallel, wrappers)
+    sharded_launches = {
+        grid[0]: phase_sc_sharded(ctt, parallel, wrappers, grid)
+        for grid in ((32, 32, 32), (128, 128, 128))
+    }
+    check(sharded_launches == grad_launches,
+          f"the sharded segments launched {sharded_launches}, the unsharded {grad_launches}")
+    torch.distributed.destroy_process_group()
+    shutil.rmtree(store)
+    phase_two_rank()
 
     def entry(name, source, replaces, measured, **extra):
         by_path = {"space_charge_segment": segment_launches[name],
                    "sc_grad_32": grad_launches[32][name], "sc_grad_128": grad_launches[128][name],
-                   "sc_line_32": line_launches[32][name], "sc_line_128": line_launches[128][name]}
+                   "sc_line_32": line_launches[32][name], "sc_line_128": line_launches[128][name],
+                   "sc_sharded_32": sharded_launches[32][name],
+                   "sc_sharded_128": sharded_launches[128][name]}
         launches = sum(by_path[path] for path in
-                       ("sc_grad_32", "sc_grad_128", "sc_line_32", "sc_line_128"))
+                       ("sc_grad_32", "sc_grad_128", "sc_line_32", "sc_line_128",
+                        "sc_sharded_32", "sc_sharded_128"))
         check(launches > 0, f"{name} was not launched on its path")
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -20,7 +20,11 @@ import pytest
 import torch
 
 import cheetah_tpu as ct
+import cheetah_tpu.parallel as jax_parallel
 import cheetah_tpu_torch as ctt
+import cheetah_tpu_torch.parallel as port_parallel
+from cheetah_tpu.utils import checkpoint as jax_checkpoint
+from cheetah_tpu_torch.utils import checkpoint as port_checkpoint
 from element_zoo import ELEMENT_CASES
 
 CPU = "cpu"
@@ -46,9 +50,6 @@ PARAMETER_EXCLUSIONS = {
 #: Public names of cheetah_tpu that the port does not have yet, each with
 #: its ROADMAP Queue 1 item. This list may only shrink.
 NOT_YET_PORTED = {
-    # Item 8, multi-device.
-    "parallel": 8,
-    "SpaceChargeKick.particle_axis": 8,
     # Item 9, converters and I/O.
     "converters": 9,
     "Beam.from_astra": 9,
@@ -215,7 +216,7 @@ def test_not_yet_ported_lists_only_missing_names():
         if any(hasattr(obj, member) for obj in holders):
             stale.append(qualified)
     assert stale == [], f"ported, so remove from NOT_YET_PORTED: {stale}"
-    assert all(item in (8, 9) for item in NOT_YET_PORTED.values())
+    assert set(NOT_YET_PORTED.values()) == {9}
 
 
 def test_structure_operations_are_not_on_the_list():
@@ -280,3 +281,62 @@ def test_idiom_exclusions_name_real_jax_members():
             assert hasattr(getattr(ct, name), member), qualified
         else:
             assert qualified in _top_level_names(), qualified
+
+
+# ---------------------------------------------------------------------------
+# The multi-device layer and the checkpoints (Queue 1 item 8)
+# ---------------------------------------------------------------------------
+
+
+def _module_functions(module) -> list[str]:
+    return [
+        name
+        for name, value in vars(module).items()
+        if inspect.isfunction(value) and value.__module__ == module.__name__
+        and not name.startswith("_")
+    ]
+
+
+MODULE_NAMES = [
+    *((jax_parallel, port_parallel, name) for name in jax_parallel.__all__),
+    *((jax_checkpoint, port_checkpoint, name) for name in _module_functions(jax_checkpoint)),
+]
+
+
+@pytest.mark.parametrize(
+    "jax_module, port_module, name", MODULE_NAMES,
+    ids=[f"{jax_module.__name__}.{name}" for jax_module, _, name in MODULE_NAMES],
+)
+def test_multi_device_names_present(jax_module, port_module, name):
+    """Every name of ``cheetah_tpu.parallel.__all__`` and every public
+    function of ``cheetah_tpu.utils.checkpoint`` exists in the port, and a
+    function's parameters are accepted by the port's."""
+    assert hasattr(port_module, name), name
+    theirs, ours = getattr(jax_module, name), getattr(port_module, name)
+    if inspect.isfunction(theirs):
+        missing = [p for p in _parameters(theirs) if p not in _parameters(ours)]
+        assert missing == [], f"{name}: parameters without counterpart: {missing}"
+
+
+def _multi_device_instance(name: str):
+    if name == "BatchedLatticeEnv":
+        segment = ctt.Segment([ctt.Drift(0.1, name="d", device=CPU)])
+        beam = SPECIAL_INSTANCES["ParticleBeam"]()
+        return port_parallel.BatchedLatticeEnv(segment, beam, [("d", "length")])
+    return port_parallel.CollectiveReport([], ("hosts",))
+
+
+@pytest.mark.parametrize("name", ["BatchedLatticeEnv", "CollectiveReport"])
+def test_multi_device_class_members_and_parameters(name):
+    """The members of the JAX classes (dataclass fields included) exist on
+    the port's instances, and their methods' parameters are accepted."""
+    jax_cls, port_cls = getattr(jax_parallel, name), getattr(port_parallel, name)
+    members = {m for m in dir(jax_cls) if not m.startswith("_")}
+    members |= {field for field in getattr(jax_cls, "__dataclass_fields__", {})}
+    instance = _multi_device_instance(name)
+    assert sorted(m for m in members if not hasattr(instance, m)) == []
+    for member in ["__init__", *members]:
+        theirs, ours = getattr(jax_cls, member, None), getattr(port_cls, member, None)
+        if callable(theirs) and callable(ours) and _parameters(theirs) is not None:
+            missing = [p for p in _parameters(theirs) if p not in _parameters(ours)]
+            assert missing == [], f"{name}.{member}: parameters without counterpart: {missing}"
