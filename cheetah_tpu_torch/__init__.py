@@ -15,7 +15,11 @@ Function of the package works under ``torch.func`` (``grad``, ``jvp``,
 ``jacfwd``, ``hessian``, ``vmap``). The structure operations edit a lattice
 (``Segment.subcell``, ``split``, ``merge``, ``clone``, the lattice passes,
 ``explain_plan``), and ``Segment.track_checkpointed`` recomputes each plan
-entry during backward instead of keeping its intermediates.
+entry during backward instead of keeping its intermediates. Lattices import
+from Elegant, Bmad, NX Tables and Ocelot (``Segment.from_*``, the
+``converters`` package), beams from ASTRA, Elegant SDDS and openPMD files;
+``plotting`` draws lattices and beams, ``utils.aot`` exports a tracking
+step with ``torch.export`` and ``utils.profiling`` times and counts it.
 """
 
 from cheetah_tpu_torch import latticejson, lattices
@@ -42,6 +46,7 @@ from cheetah_tpu_torch.accelerator import (
     Undulator,
     VerticalCorrector,
 )
+from cheetah_tpu_torch import converters
 from cheetah_tpu_torch.ops import transfer_maps as track_methods
 from cheetah_tpu_torch.particles import Beam, ParameterBeam, ParticleBeam, Species
 from cheetah_tpu_torch.utils.warnings import (
@@ -87,6 +92,7 @@ __all__ = [
     "TransverseDeflectingCavity",
     "Undulator",
     "VerticalCorrector",
+    "converters",
     "latticejson",
     "lattices",
     "track_methods",

@@ -343,6 +343,79 @@ class Element(nn.Module):
             f"{feature}={getattr(self, feature)!r}" for feature in self.defining_features
         )
 
+    # ------------------------------------------------------------------
+    # Visualisation
+    # ------------------------------------------------------------------
+
+    def plot(self, s, vector_idx: tuple | None = None, ax=None):
+        """Draw a 1D cartoon of this element at position ``s``."""
+        from cheetah_tpu_torch.plotting import plot_element
+
+        return plot_element(self, s, vector_idx, ax)
+
+    def to_mesh(
+        self,
+        cuteness: float | dict = 1.0,
+        asset_version: str = "v1.2.0",
+        show_download_progress: bool = True,
+    ):
+        """3D mesh of the element and the transform that places the next
+        element's mesh downstream of it. Requires ``trimesh``; the mesh is
+        ``None``, with a warning, if the asset is unavailable.
+
+        :param cuteness: Scale of the mesh, or a dict of scales by element
+            name, by element class or ``"*"``.
+        """
+        try:
+            import trimesh
+        except ImportError:
+            raise ImportError("To use 3D visualisation, trimesh must be installed.")
+
+        from cheetah_tpu_torch.utils import assets
+        from cheetah_tpu_torch.utils.warnings import VisualizationWarning
+
+        length = float(torch.max(self.length.detach()))
+        output_transform = trimesh.transformations.translation_matrix([0.0, 0.0, length])
+
+        snake_case = "".join(
+            "_" + c.lower() if c.isupper() else c for c in type(self).__name__
+        ).lstrip("_")
+        mesh = assets.load_3d_asset(
+            f"{snake_case}.glb",
+            branch_or_tag=asset_version,
+            show_download_progress=show_download_progress,
+        )
+        if mesh is None:
+            warnings.warn(
+                f"Could not load 3D mesh for element {self.name} of type "
+                f"{type(self).__name__}. The element will not be visualised.",
+                category=VisualizationWarning,
+                stacklevel=2,
+            )
+            return None, output_transform
+
+        # Scale to the physical length (meshes of thin elements keep their
+        # default size, with a warning if a length was expected).
+        if abs(length) > 0.0:
+            _, _, mesh_length = mesh.extents
+            mesh.apply_scale(length / mesh_length)
+        elif "length" in self.defining_features:
+            warnings.warn(
+                f"Element {self.name} of type {type(self).__name__} has a "
+                "length of zero. The mesh is therefore scaled to a default "
+                "size and does not accurately represent the element's length.",
+                category=VisualizationWarning,
+                stacklevel=2,
+            )
+
+        if isinstance(cuteness, dict):
+            cuteness = cuteness.get(
+                self.name, cuteness.get(type(self), cuteness.get("*", 1.0))
+            )
+        mesh.apply_scale(cuteness)
+
+        return mesh, output_transform
+
     def __eq__(self, other: object) -> bool:
         """Equal type and equal defining features, the name aside; nested
         elements must have equal names and metadata too, as in the JAX

@@ -628,6 +628,171 @@ class Segment(Element):
 
         latticejson.save_cheetah_model(self, filepath, title, info)
 
+    @classmethod
+    def from_ocelot(
+        cls,
+        cell,
+        name: str | None = None,
+        sanitize_names: bool | None = None,
+        dtype: torch.dtype | None = None,
+        device: torch.device | str | None = None,
+        **kwargs,
+    ) -> "Segment":
+        """Translate an Ocelot cell (list of Ocelot elements) to a
+        ``Segment``.
+
+        :param device: Device of the lattice; the GPU when ``None``.
+        """
+        from cheetah_tpu_torch.converters import ocelot
+        from cheetah_tpu_torch.utils.device import resolve_device
+
+        device = resolve_device(device)
+        converted = [
+            ocelot.convert_element(element, sanitize_name=sanitize_names, dtype=dtype,
+                                   device=device)
+            for element in cell
+        ]
+        return cls(converted, name=name, sanitize_name=sanitize_names, **kwargs)
+
+    @classmethod
+    def from_bmad(
+        cls,
+        bmad_lattice_file_path: str,
+        environment_variables: dict | None = None,
+        sanitize_names: bool | None = None,
+        dtype: torch.dtype | None = None,
+        device: torch.device | str | None = None,
+    ) -> "Segment":
+        """Read a ``Segment`` from a Bmad lattice file.
+
+        :param device: Device of the lattice; the GPU when ``None``.
+        """
+        from pathlib import Path
+
+        from cheetah_tpu_torch.converters import bmad
+
+        return bmad.convert_lattice(
+            Path(bmad_lattice_file_path), environment_variables, sanitize_names, dtype, device
+        )
+
+    @classmethod
+    def from_elegant(
+        cls,
+        elegant_lattice_file_path: str,
+        name: str,
+        sanitize_names: bool | None = None,
+        dtype: torch.dtype | None = None,
+        device: torch.device | str | None = None,
+    ) -> "Segment":
+        """Read a ``Segment`` from an Elegant lattice file.
+
+        :param device: Device of the lattice; the GPU when ``None``.
+        """
+        from pathlib import Path
+
+        from cheetah_tpu_torch.converters import elegant
+
+        return elegant.convert_lattice(
+            Path(elegant_lattice_file_path), name, sanitize_names, dtype, device
+        )
+
+    @classmethod
+    def from_nx_tables(
+        cls,
+        filepath,
+        dtype: torch.dtype | None = None,
+        device: torch.device | str | None = None,
+    ) -> "Element":
+        """Read an NX Tables CSV file (ARES-specific format) into a
+        ``Segment``.
+
+        :param device: Device of the lattice; the GPU when ``None``.
+        """
+        from pathlib import Path
+
+        from cheetah_tpu_torch.converters import nxtables
+
+        return nxtables.convert_lattice(Path(filepath), dtype, device)
+
+    # ------------------------------------------------------------------
+    # Visualisation (delegations into cheetah_tpu_torch.plotting)
+    # ------------------------------------------------------------------
+
+    def plot(self, s=0.0, vector_idx: tuple | None = None, ax=None):
+        """Draw the lattice cartoon."""
+        from cheetah_tpu_torch import plotting
+
+        return plotting.plot_segment_cartoon(self, s, vector_idx, ax)
+
+    def plot_mean_and_std(self, incoming, resolution=None, vector_idx=None, axx=None, axy=None):
+        """Plot beam position and size along s."""
+        from cheetah_tpu_torch import plotting
+
+        reference_segment = self.clone()  # Prevent plotting side effects
+        return plotting.plot_mean_and_std(
+            reference_segment, incoming, resolution, vector_idx, axx, axy
+        )
+
+    def plot_overview(self, incoming, resolution=None, vector_idx=None, fig=None):
+        """Lattice cartoon under the beam position and size plots."""
+        from cheetah_tpu_torch import plotting
+
+        return plotting.plot_overview(self, incoming, resolution, vector_idx, fig)
+
+    def plot_beam_attrs(self, incoming, attr_names, resolution=None, vector_idx=None, ax=None):
+        """Plot any beam attributes along s."""
+        from cheetah_tpu_torch import plotting
+
+        return plotting.plot_beam_attrs(self, incoming, attr_names, resolution, vector_idx, ax)
+
+    def plot_beam_attrs_over_lattice(
+        self, incoming, attr_names, resolution=None, vector_idx=None, fig=None
+    ):
+        """Beam attributes over the lattice cartoon."""
+        from cheetah_tpu_torch import plotting
+
+        return plotting.plot_beam_attrs_over_lattice(
+            self, incoming, attr_names, resolution, vector_idx, fig
+        )
+
+    def plot_twiss(self, incoming, vector_idx=None, ax=None):
+        """Plot the beta functions along s."""
+        from cheetah_tpu_torch import plotting
+
+        return plotting.plot_twiss(self, incoming, vector_idx, ax)
+
+    def plot_twiss_over_lattice(self, incoming, vector_idx=None, fig=None):
+        """The beta functions over the lattice cartoon."""
+        from cheetah_tpu_torch import plotting
+
+        return plotting.plot_twiss_over_lattice(self, incoming, vector_idx, fig)
+
+    def to_mesh(
+        self,
+        cuteness: float | dict = 1.0,
+        asset_version: str = "v1.2.0",
+        show_download_progress: bool = True,
+    ):
+        """3D scene of the whole lattice, chaining the elements' meshes and
+        transforms; returns the scene and the lattice's exit transform.
+        Requires ``trimesh``."""
+        import trimesh
+
+        scene = trimesh.Scene()
+        input_transform = trimesh.transformations.identity_matrix()
+        for element in self.elements:
+            element_mesh, element_output_transform = element.to_mesh(
+                cuteness=cuteness,
+                asset_version=asset_version,
+                show_download_progress=show_download_progress,
+            )
+            if element_mesh is not None:
+                element_mesh.apply_transform(input_transform)
+            input_transform = input_transform @ element_output_transform
+            scene.add_geometry(element_mesh)
+
+        return scene, input_transform
+
     @property
     def defining_features(self) -> list[str]:
         return super().defining_features + ["elements"]

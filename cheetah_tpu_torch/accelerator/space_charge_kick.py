@@ -28,7 +28,6 @@ the same kernels as without the axis.
 
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
@@ -38,6 +37,7 @@ from cheetah_tpu_torch.constants import elementary_charge, epsilon_0, speed_of_l
 from cheetah_tpu_torch.ops import cic_kernels
 from cheetah_tpu_torch.ops.cloud_in_cell import cloud_in_cell_charge_deposition, grid_counts
 from cheetah_tpu_torch.particles import ParticleBeam
+from cheetah_tpu_torch.utils.device import constant_cache
 
 
 def _all_reduce(tensor: torch.Tensor, axis) -> torch.Tensor:
@@ -49,7 +49,7 @@ def _all_reduce(tensor: torch.Tensor, axis) -> torch.Tensor:
     return collectives.all_reduce(tensor, axis)
 
 
-@functools.lru_cache(maxsize=None)
+@constant_cache
 def _momentum_columns(device: torch.device) -> torch.Tensor:
     return torch.tensor([1, 3, 5], device=device)
 

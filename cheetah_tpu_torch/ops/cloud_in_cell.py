@@ -24,7 +24,6 @@ unit and are not carried over.
 
 from __future__ import annotations
 
-import functools
 import itertools
 import math
 from typing import Sequence
@@ -32,10 +31,11 @@ from typing import Sequence
 import torch
 
 from cheetah_tpu_torch.ops import cic_kernels
+from cheetah_tpu_torch.utils.device import constant_cache
 
 
 
-@functools.lru_cache(maxsize=None)
+@constant_cache
 def grid_counts(shape: tuple[int, ...], dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """A grid's cell counts as a tensor on ``device``, made once: building it
     from the Python tuple on every call would copy it from the host, which a

@@ -15,11 +15,10 @@ arguments.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from cheetah_tpu_torch.particles.species import Species
+from cheetah_tpu_torch.utils.device import constant_cache
 from cheetah_tpu_torch.utils.maths import (
     cos_sqrt,
     cossqrtmcosdivdiff,
@@ -33,12 +32,12 @@ from cheetah_tpu_torch.utils.maths import (
 from cheetah_tpu_torch.utils.physics import compute_relativistic_factors
 
 
-@functools.lru_cache(maxsize=None)
+@constant_cache
 def _flat_identity(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return torch.eye(7, dtype=dtype, device=device).reshape(49)
 
 
-@functools.lru_cache(maxsize=None)
+@constant_cache
 def _flat_positions(positions: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor([7 * row + column for row, column in positions], device=device)
 
@@ -63,7 +62,7 @@ def matrix7(
     return flat.reshape(*vector_shape, 7, 7)
 
 
-@functools.lru_cache(maxsize=None)
+@constant_cache
 def _entry_mask(row: int, column: int, device: torch.device) -> torch.Tensor:
     mask = torch.zeros(7, 7, dtype=torch.bool, device=device)
     mask[row, column] = True
@@ -214,7 +213,7 @@ _TTENSOR_ENTRIES = (
 )  # fmt: skip
 
 
-@functools.lru_cache(maxsize=None)
+@constant_cache
 def _ttensor_index(device: torch.device) -> torch.Tensor:
     return torch.tensor([49 * i + 7 * j + k for i, j, k in _TTENSOR_ENTRIES], device=device)
 

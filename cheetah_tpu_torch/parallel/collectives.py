@@ -9,7 +9,8 @@ the ranks that differ only along those axes) or a ``ProcessGroup``. Names
 are looked up on the mesh made current by :func:`active_mesh`.
 
 :func:`all_reduce` is differentiable: its backward all-reduces (sums) the
-cotangent, the transpose of JAX's ``psum``. With the gradient convention of
+cotangent, the transpose of JAX's ``psum``; its jvp all-reduces the tangent,
+and under ``torch.func.vmap`` it sums the batched tensor whole. With the gradient convention of
 the port (each rank calls backward on its own share of the loss; see
 :class:`~cheetah_tpu_torch.accelerator.SpaceChargeKick`), that sum carries
 the terms of the other ranks' losses. ``torch.distributed.all_reduce``
@@ -30,6 +31,8 @@ from typing import Iterator, Sequence
 
 import torch
 import torch.distributed as dist
+
+from cheetah_tpu_torch.utils.maths import presigned
 
 _MESH: contextvars.ContextVar = contextvars.ContextVar("cheetah_tpu_torch_mesh", default=None)
 #: The open recordings. Shared by all threads, unlike a context variable:
@@ -139,21 +142,34 @@ def _issue(kind: str, tensor: torch.Tensor, group, groups, **kwargs) -> None:
         lines.append(describe(kind, tensor, groups))
 
 
+@presigned
 class _AllReduce(torch.autograd.Function):
-    """Sum over the ranks of a group; the backward sums the cotangents."""
+    """Sum over the ranks of a group. Its derivative rules are all-reduces
+    too, as JAX's for ``psum``: backward sums the cotangents, jvp the
+    tangents, and under ``vmap`` the batched tensor is summed whole, its
+    batch dimension kept."""
 
     @staticmethod
-    def forward(ctx, tensor, group, groups):
-        ctx.group, ctx.groups = group, groups
+    def forward(tensor, group, groups):
         summed = tensor.clone(memory_format=torch.contiguous_format)
         _issue("all-reduce", summed, group, groups)
         return summed
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.group, ctx.groups = inputs
+
+    @staticmethod
     def backward(ctx, grad):
-        summed = grad.clone(memory_format=torch.contiguous_format)
-        _issue("all-reduce", summed, ctx.group, ctx.groups)
-        return summed, None, None
+        return _AllReduce.apply(grad, ctx.group, ctx.groups), None, None
+
+    @staticmethod
+    def jvp(ctx, tangent, *_):
+        return _AllReduce.apply(tangent, ctx.group, ctx.groups)
+
+    @staticmethod
+    def vmap(info, in_dims, tensor, group, groups):
+        return _AllReduce.apply(tensor, group, groups), in_dims[0]
 
 
 def all_reduce(tensor: torch.Tensor, axis, mesh=None) -> torch.Tensor:

@@ -8,13 +8,19 @@ independent of any particle count.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from cheetah_tpu_torch.particles import _moments
 from cheetah_tpu_torch.particles.beam import Beam
 from cheetah_tpu_torch.particles.particle_beam import ParticleBeam
 from cheetah_tpu_torch.particles.species import Species
-from cheetah_tpu_torch.utils.device import as_float_tensor, infer_dtype_device, same_device
+from cheetah_tpu_torch.utils.device import (
+    as_float_tensor,
+    infer_dtype_device,
+    resolve_device,
+    same_device,
+)
 
 _COMPONENTS = ("x", "px", "y", "py", "tau", "p")
 
@@ -197,6 +203,56 @@ class ParameterBeam(Beam):
             dtype=dtype,
             device=device,
             **moments,
+        )
+
+    @classmethod
+    def from_astra(
+        cls,
+        path: str,
+        dtype: torch.dtype | None = None,
+        device: torch.device | str | None = None,
+    ) -> "ParameterBeam":
+        """Load an ASTRA particle distribution as its moments.
+
+        :param device: Device of the beam; the GPU when ``None``.
+        """
+        from cheetah_tpu_torch.converters.astra import from_astrabeam
+
+        particles, energy, particle_charges = from_astrabeam(path)
+        return cls._from_host_samples(particles, energy, particle_charges.sum(), dtype, device)
+
+    @classmethod
+    def from_ocelot(
+        cls,
+        parray,
+        dtype: torch.dtype | None = None,
+        device: torch.device | str | None = None,
+    ) -> "ParameterBeam":
+        """Load an Ocelot ``ParticleArray`` as its moments.
+
+        :param device: Device of the beam; the GPU when ``None``.
+        """
+        return cls._from_host_samples(
+            np.asarray(parray.rparticles).T, 1e9 * parray.E,
+            np.sum(np.asarray(parray.q_array)), dtype, device,
+        )
+
+    @classmethod
+    def _from_host_samples(cls, particles, energy, total_charge, dtype, device):
+        """An electron beam with the mean and covariance (numpy's, unbiased)
+        of the ``(N, 6)`` samples ``particles``."""
+        dtype = dtype if dtype is not None else torch.get_default_dtype()
+        device = resolve_device(device)
+        mu = torch.ones(7, dtype=dtype, device=device)
+        mu[:6] = torch.as_tensor(particles.mean(axis=0), dtype=dtype, device=device)
+        cov = torch.zeros((7, 7), dtype=dtype, device=device)
+        cov[:6, :6] = torch.as_tensor(np.cov(particles.T), dtype=dtype, device=device)
+        return cls(
+            mu=mu,
+            cov=cov,
+            energy=torch.as_tensor(energy, dtype=dtype, device=device),
+            total_charge=torch.as_tensor(total_charge, dtype=dtype, device=device),
+            species=Species("electron", dtype=dtype, device=device),
         )
 
     # ------------------------------------------------------------------

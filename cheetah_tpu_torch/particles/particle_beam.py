@@ -12,6 +12,7 @@ from __future__ import annotations
 import math
 from typing import Any
 
+import numpy as np
 import torch
 
 from cheetah_tpu_torch import constants
@@ -21,6 +22,7 @@ from cheetah_tpu_torch.particles.species import Species
 from cheetah_tpu_torch.utils.device import (
     as_float_tensor,
     infer_dtype_device,
+    resolve_device,
     same_device,
 )
 from cheetah_tpu_torch.utils.elementwise_linspace import elementwise_linspace
@@ -89,6 +91,15 @@ class ParticleBeam(Beam):
         "particle_charges": 1,
         "survival_probabilities": 1,
         **{component: 1 for component in _COMPONENTS},
+    }
+
+    PRETTY_DIMENSION_LABELS = {
+        "x": r"$x$",
+        "px": r"$p_x$",
+        "y": r"$y$",
+        "py": r"$p_y$",
+        "tau": r"$\tau$",
+        "p": r"$\delta$",
     }
 
     def __init__(
@@ -522,6 +533,213 @@ class ParticleBeam(Beam):
             dim=-1,
         )
 
+    # ------------------------------------------------------------------
+    # Import and export
+    # ------------------------------------------------------------------
+
+    @classmethod
+    def from_astra(
+        cls,
+        path: str,
+        dtype: torch.dtype | None = None,
+        device: torch.device | str | None = None,
+    ) -> "ParticleBeam":
+        """Load an ASTRA particle distribution.
+
+        :param device: Device of the beam; the GPU when ``None``.
+        """
+        from cheetah_tpu_torch.converters.astra import from_astrabeam
+
+        particles, energy, particle_charges = from_astrabeam(path)
+        return cls._from_host_arrays(particles, energy, particle_charges, dtype, device)
+
+    @classmethod
+    def from_ocelot(
+        cls,
+        parray,
+        dtype: torch.dtype | None = None,
+        device: torch.device | str | None = None,
+    ) -> "ParticleBeam":
+        """Convert an Ocelot ``ParticleArray`` (``rparticles`` of shape
+        ``(6, N)``, ``E`` in GeV, ``q_array`` in C).
+
+        :param device: Device of the beam; the GPU when ``None``.
+        """
+        return cls._from_host_arrays(
+            np.asarray(parray.rparticles).T, 1e9 * parray.E, np.asarray(parray.q_array),
+            dtype, device,
+        )
+
+    @classmethod
+    def _from_host_arrays(cls, particles, energy, particle_charges, dtype, device):
+        """An electron beam from numpy ``(N, 6)`` coordinates, the reference
+        energy and the charges."""
+        dtype = dtype if dtype is not None else torch.get_default_dtype()
+        device = resolve_device(device)
+        coordinates = torch.as_tensor(particles, dtype=dtype, device=device)
+        ones = torch.ones((coordinates.shape[0], 1), dtype=dtype, device=device)
+        return cls(
+            particles=torch.cat([coordinates, ones], dim=-1),
+            energy=torch.as_tensor(energy, dtype=dtype, device=device),
+            particle_charges=torch.as_tensor(particle_charges, dtype=dtype, device=device),
+            species=Species("electron", dtype=dtype, device=device),
+        )
+
+    @classmethod
+    def from_elegant(
+        cls,
+        file_path,
+        dtype: torch.dtype | None = None,
+        device: torch.device | str | None = None,
+    ) -> "ParticleBeam":
+        """Load an Elegant SDDS particle distribution.
+
+        :param device: Device of the beam; the GPU when ``None``.
+        """
+        from pathlib import Path
+
+        from cheetah_tpu_torch.converters import elegant
+
+        particles, energy, particle_charges = elegant.convert_beam(
+            Path(file_path), dtype=dtype, device=device
+        )
+        return cls(
+            particles=particles,
+            energy=energy,
+            particle_charges=particle_charges,
+            species=Species("electron", dtype=particles.dtype, device=particles.device),
+        )
+
+    @classmethod
+    def from_openpmd_file(
+        cls,
+        path: str,
+        energy: torch.Tensor | float,
+        dtype: torch.dtype | None = None,
+        device: torch.device | str | None = None,
+    ) -> "ParticleBeam":
+        """Load an openPMD particle group HDF5 file.
+
+        Uses ``pmd_beamphysics`` when installed; otherwise the native h5py
+        reader of :mod:`cheetah_tpu_torch.converters.openpmd` (the same
+        schema).
+
+        :param device: Device of the beam; the GPU when ``None``.
+        """
+        try:
+            import pmd_beamphysics as openpmd
+
+            particle_group = openpmd.ParticleGroup(str(path))
+        except ImportError:
+            from cheetah_tpu_torch.converters.openpmd import read_particle_group_h5
+
+            particle_group = read_particle_group_h5(path)
+        return cls.from_openpmd_particlegroup(particle_group, energy, dtype=dtype, device=device)
+
+    @classmethod
+    def from_openpmd_particlegroup(
+        cls,
+        particle_group,
+        energy: torch.Tensor | float,
+        dtype: torch.dtype | None = None,
+        device: torch.device | str | None = None,
+    ) -> "ParticleBeam":
+        """Create a beam from an openPMD ``ParticleGroup`` (or the port's
+        ``ParticleGroupData``): positions in m, momenta in eV/c, times in s,
+        weights in C. Each array is cast to ``dtype`` before the
+        arithmetic, as in the JAX package.
+
+        :param device: Device of the beam; the GPU when ``None``.
+        """
+        dtype = dtype if dtype is not None else torch.get_default_dtype()
+        device = resolve_device(device)
+
+        def tensor(values) -> torch.Tensor:
+            return torch.as_tensor(np.asarray(values), dtype=dtype, device=device)
+
+        species = Species(particle_group.species, dtype=dtype, device=device)
+        energy = as_float_tensor(energy, dtype=dtype, device=device)
+        p0c = torch.sqrt(torch.square(energy) - torch.square(species.mass_eV))
+
+        x = tensor(particle_group.x)
+        particles = torch.stack(
+            [
+                x,
+                tensor(particle_group.px) / p0c,
+                tensor(particle_group.y),
+                tensor(particle_group.py) / p0c,
+                tensor(particle_group.t) * constants.speed_of_light,
+                (tensor(particle_group.energy) - energy) / p0c,
+                torch.ones_like(x),
+            ],
+            dim=-1,
+        )
+        return cls(
+            particles=particles,
+            energy=energy,
+            particle_charges=tensor(particle_group.weight),
+            survival_probabilities=tensor(particle_group.status),
+            species=species,
+        )
+
+    def save_as_openpmd_h5(self, path: str) -> None:
+        """Save the beam as an openPMD particle group HDF5 file.
+
+        Uses ``pmd_beamphysics`` when installed; otherwise writes the same
+        openPMD BeamPhysics schema with :mod:`cheetah_tpu_torch.converters.openpmd`.
+        """
+        try:
+            self.to_openpmd_particlegroup().write(str(path))
+        except ImportError:
+            from cheetah_tpu_torch.converters.openpmd import write_particle_group_h5
+
+            write_particle_group_h5(self._to_openpmd_data(), path)
+
+    def _to_openpmd_data(self) -> dict:
+        """The beam as an openPMD BeamPhysics data dict of numpy arrays:
+        positions in m, momenta in eV/c, time in s, macro charges in C,
+        integer status flags (survival probability above 0.5). Computed in
+        the beam's dtype on its device, then copied to the host."""
+        if self.particles.ndim != 2:
+            raise ValueError("Only non-vectorised particle distributions are supported.")
+
+        def host(tensor: torch.Tensor) -> np.ndarray:
+            return tensor.detach().cpu().numpy()
+
+        px = self.px * self.p0c
+        py = self.py * self.p0c
+        p_total = torch.sqrt(torch.square(self.energies) - torch.square(self.species.mass_eV))
+        pz = torch.sqrt(torch.square(p_total) - torch.square(px) - torch.square(py))
+        return {
+            "x": host(self.x),
+            "y": host(self.y),
+            "z": host(self.tau),
+            "px": host(px),
+            "py": host(py),
+            "pz": host(pz),
+            "t": host(self.tau / constants.speed_of_light),
+            "weight": host(self.particle_charges),
+            "status": host(self.survival_probabilities > 0.5).astype(int),
+            "species": self.species.name,
+        }
+
+    def to_openpmd_particlegroup(self):
+        """Convert to an openPMD ``ParticleGroup``. Unvectorised beams only;
+        survival probabilities are thresholded at 0.5 into status flags.
+
+        Requires ``pmd_beamphysics`` (the returned object is its class); for
+        file I/O without it use :meth:`save_as_openpmd_h5` and
+        :meth:`from_openpmd_file`.
+        """
+        try:
+            import pmd_beamphysics as openpmd
+        except ImportError:
+            raise ImportError(
+                "To use the openPMD beam export, openPMD-beamphysics must be installed."
+            )
+
+        return openpmd.ParticleGroup(data=self._to_openpmd_data())
+
     def to(
         self, device: torch.device | str | None = None, dtype: torch.dtype | None = None
     ) -> "ParticleBeam":
@@ -800,6 +1018,34 @@ class ParticleBeam(Beam):
     def momenta(self) -> torch.Tensor:
         """Momenta (times c) of the individual particles in eV."""
         return torch.sqrt(torch.square(self.energies) - torch.square(self.species.mass_eV))
+
+    # ------------------------------------------------------------------
+    # Visualisation (delegations into cheetah_tpu_torch.plotting)
+    # ------------------------------------------------------------------
+
+    def plot_1d_distribution(self, dimension, **kwargs):
+        """1D histogram of one phase-space dimension."""
+        from cheetah_tpu_torch import plotting
+
+        return plotting.plot_1d_distribution(self, dimension, **kwargs)
+
+    def plot_2d_distribution(self, x_dimension, y_dimension, **kwargs):
+        """2D histogram or contour of two phase-space dimensions."""
+        from cheetah_tpu_torch import plotting
+
+        return plotting.plot_2d_distribution(self, x_dimension, y_dimension, **kwargs)
+
+    def plot_distribution(self, **kwargs):
+        """Corner plot over the phase-space dimensions."""
+        from cheetah_tpu_torch import plotting
+
+        return plotting.plot_distribution(self, **kwargs)
+
+    def plot_point_cloud(self, **kwargs):
+        """3D scatter of the spatial coordinates, coloured by delta."""
+        from cheetah_tpu_torch import plotting
+
+        return plotting.plot_point_cloud(self, **kwargs)
 
     def __getitem__(self, item: Any) -> "ParticleBeam":
         """The beam at ``item`` of its vector dimensions, every tensor

@@ -10,9 +10,11 @@ moved.
 
 from __future__ import annotations
 
-from typing import Any, Iterable
+import functools
+from typing import Any, Callable, Iterable
 
 import torch
+from torch._subclasses.fake_tensor import unset_fake_temporarily
 
 
 def resolve_device(device: torch.device | str | None = None) -> torch.device:
@@ -103,3 +105,24 @@ def check_module_device(module: torch.nn.Module, device: torch.device) -> None:
                 f"{buffer.device} but the beam is on device {device}; move one "
                 "of them explicitly with .to()."
             )
+
+
+def constant_cache(function: Callable[..., torch.Tensor]) -> Callable[..., torch.Tensor]:
+    """``functools.lru_cache`` for a function that builds a constant tensor
+    from hashable arguments (an index, an identity, a grid's counts), made
+    once per device instead of copied from the host on every call.
+
+    The tensor is built outside any fake-tensor mode: ``torch.export``
+    traces with fake tensors, and a fake tensor cached during a trace would
+    be handed to every later call, eager or traced. A real constant is
+    carried into the exported program as one of its constants.
+    """
+    cached = functools.lru_cache(maxsize=None)(function)
+
+    @functools.wraps(function)
+    def build_once(*args):
+        with unset_fake_temporarily():
+            return cached(*args)
+
+    build_once.cache_clear = cached.cache_clear
+    return build_once

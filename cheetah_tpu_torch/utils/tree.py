@@ -120,3 +120,32 @@ def rebuild(obj: Any, leaves: dict[str, torch.Tensor], prefix: str = "") -> Any:
             for index, value in enumerate(obj)
         )
     return obj
+
+
+def tree_equal(a: Any, b: Any) -> bool:
+    """Structural and numerical equality of two objects that
+    :func:`flatten` reads (the JAX package's pytree ``tree_equal``): the
+    same types, the same tensor paths, equal shapes and equal values.
+    Elements are compared by ``==`` too, which adds their configuration
+    (the JAX package's static fields)."""
+    if type(a) is not type(b):
+        return False
+    if isinstance(a, nn.Module) and a != b:
+        return False
+    leaves_a, leaves_b = list(flatten(a)), list(flatten(b))
+    if [path for path, _, _ in leaves_a] != [path for path, _, _ in leaves_b]:
+        return False
+    return all(
+        x.shape == y.shape and not bool(torch.any(x.detach().cpu() != y.detach().cpu()))
+        for (_, _, x), (_, _, y) in zip(leaves_a, leaves_b)
+    )
+
+
+def replace(obj: Any, **changes: Any) -> Any:
+    """A copy of ``obj`` (an element, a segment, a beam or a species, each
+    copied by its ``clone``) with the attributes in ``changes`` assigned,
+    the counterpart of the JAX package's functional ``replace``."""
+    copied = obj.clone()
+    for name, value in changes.items():
+        setattr(copied, name, value)
+    return copied

@@ -55,6 +55,18 @@ on 32^3 and 128^3, against the unsharded run with the collectives' bytes
 audited; last two processes over gloo on the one card (NCCL refuses two
 ranks on one device), each with half the instances and half the
 particles, against the one-process run.
+Last the tenth slice: the ARES linac imported from its NX Tables export
+(``Segment.from_nx_tables``, 226 elements) with seeded magnets, and the
+Elegant FODO and cavity lattices and the Bmad tutorial lattice, at 1M
+float32 particles against the port's float64 CPU run, the import through
+LatticeJSON and back, with eager and graph time, launches and idle share;
+the 1M beam through openPMD and back onto the card (a file where h5py is
+installed, the openPMD records in memory where it is not) and then
+through the 32^3 space-charge segment; the env step exported with
+``torch.export`` (the particle axis symbolic), saved, loaded and run at 10k
+and 100k particles; the plots' data of the imported linac and of the 1M
+beam (drawn under Agg where matplotlib is installed); and
+``utils.profiling`` against this script's timer.
 Every phase prints one JSON line. The last line is
 ``{"ok": true, "device": {...}}``; any failed check raises, so the script
 exits non-zero and prints no such line. It imports neither JAX nor the JAX
@@ -70,6 +82,7 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -280,6 +293,58 @@ ENV_ANGLE_ZERO_F64 = 1e-9
 TWO_RANK_ENV_RTOL = 100 * torch.finfo(torch.float32).eps
 AUDIT_READOUT_BYTES = 4096
 TWO_RANK_TIMEOUT_S = 300
+# The tenth slice. imported_ares: the ARES linac imported from its NX
+# Tables export (226 elements, 44.22 m), its 15 quadrupoles' k1 and 33
+# corrector angles set from a numpy Generator (SEED) in stage 3's ranges
+# (k1 in +-5 1/m^2, angles in +-1e-4 rad), which keep the beam finite; 1M
+# float32 particles against the port's float64 CPU run of the same import.
+# The moments are those of the card's float32 particles summed in float64:
+# a float32 readout's raw-moment variance loses (mu / sigma)^2 eps off axis
+# (ROADMAP Queue 3), and the Elegant cavity lattice's matrix moves the beam
+# 0.1 m off axis at a sigma_y of 6.5e-5 m (a float32 readout of sigma_y is
+# off by 34% there on the CPU). mu_x and mu_y within 1e-4 of sigma, sigma_x
+# and sigma_y within rtol 1e-4 (stage 3's linear bound; at most 2.5e-6 and
+# 2.3e-6 on the CPU at 100k), 1e-3 where a sextupole tracks second order
+# (the FODO cell, the Bmad tutorial; stage 3's second-order bound). The ARES
+# import through LatticeJSON and back tracks to the same particles, bit for
+# bit.
+IMPORTED_K1_RANGE = 5.0
+IMPORTED_ANGLE_RANGE = 1e-4
+IMPORTED_RTOL = {"linear": 1e-4, "second_order": 1e-3}
+IMPORTED_FILES = {
+    "fodo": ("fodo.lte", "second_order"),
+    "cavity": ("cavity.lte", "linear"),
+    "bmad_tutorial": ("bmad_tutorial_lattice.bmad", "second_order"),
+}
+# beam_io: the 1M float32 card beam through openPMD. The records keep x, px,
+# y, py and tau to a few float32 ulps of each coordinate's largest value (4
+# eps); delta costs the SI round trip: the per-particle energy is written
+# as sqrt(p^2 + m^2) and read back less the reference energy, so delta is
+# good to eps E / p0c per rounding (4 of them allowed; 2 held for 2000
+# particles on the CPU). In float64 every coordinate within 1e-12 of its
+# largest value. The read-back beam's kicks through the 32^3 segment within
+# KICK_RMS_TOLERANCE of the original beam's.
+BEAM_IO_ULPS = 4
+BEAM_IO_F64_RTOL = 1e-12
+# deploy: the env step exported by torch.export with the particle axis
+# symbolic, saved, loaded and run at 10k and 100k particles: the loaded
+# program runs the operations of eager tracking on the same card, rtol
+# 1e-6. The plots of the linac as imported (its magnets at zero) from a
+# float64 card run against the float64 CPU run, within 1e-6 of each line's
+# largest value: the Twiss beta divides by an emittance that cancels up to
+# 8.4e7-fold at the linac's end (<x^2><px^2> over the emittance squared),
+# and a 1e-15 relative change of the particles moves beta_x by 3.2e-8 of
+# its largest value on the CPU. (With the seeded magnets the cancellation
+# reaches 9.3e12 and the same change moves beta_y by 4.5e-4: no precision
+# holds that; in float32 a CPU beta_x is off by 9e9.) The 1M float32 beam's
+# histograms equal those of its copy on the CPU, bit for bit: the same
+# float32 particles binned by the same numpy. (Against a float64 copy the
+# edges round otherwise and particles on them change bins: 6.7e-4 of the
+# largest 2D bin on one H100.) profiling.benchmark of the env step within a
+# factor 2 of time_ms.
+DEPLOY_RTOL = 1e-6
+PLOT_F64_RTOL = 1e-6
+BENCHMARK_FACTOR = 2.0
 
 
 def emit(phase: str, **fields) -> None:
@@ -2778,6 +2843,358 @@ def phase_two_rank() -> None:
                       f"not {expected}")
 
 
+# ---------------------------------------------------------------------------
+# The tenth slice: converters, beam I/O, export, plotting, profiling
+# ---------------------------------------------------------------------------
+
+RESOURCES = pathlib.Path(__file__).resolve().parent / "tests" / "resources"
+
+
+def _imported_ares(ctt, dtype, device):
+    """The ARES linac of ``tests/resources/Stage4v3_9.txt`` with its
+    quadrupoles' k1 and its correctors' angles from SEED, in the lattice's
+    order."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        segment = ctt.Segment.from_nx_tables(RESOURCES / "Stage4v3_9.txt", dtype=dtype,
+                                             device=device)
+    rng = np.random.default_rng(SEED)
+    quadrupoles = [e for e in segment.elements if type(e).__name__ == "Quadrupole"]
+    correctors = [e for e in segment.elements
+                  if type(e).__name__ in ("HorizontalCorrector", "VerticalCorrector")]
+    for quadrupole, k1 in zip(quadrupoles, rng.uniform(-IMPORTED_K1_RANGE, IMPORTED_K1_RANGE,
+                                                       len(quadrupoles))):
+        quadrupole.k1 = float(k1)
+    for corrector, angle in zip(correctors, rng.uniform(-IMPORTED_ANGLE_RANGE,
+                                                        IMPORTED_ANGLE_RANGE, len(correctors))):
+        corrector.angle = float(angle)
+    return segment
+
+
+def _imported_file(ctt, name, dtype, device):
+    filename, _ = IMPORTED_FILES[name]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        if filename.endswith(".bmad"):
+            return ctt.Segment.from_bmad(RESOURCES / filename, dtype=dtype, device=device)
+        return ctt.Segment.from_elegant(RESOURCES / filename, name, sanitize_names=True,
+                                        dtype=dtype, device=device)
+
+
+def _moment_errors(particles, expected) -> dict:
+    """mu_x and mu_y against sigma and sigma_x and sigma_y relative, of the
+    card's particles summed in float64 against the float64 run's."""
+    actual = particles.detach().double().cpu().reshape(-1, 7)
+    expected = expected.detach().reshape(-1, 7)
+    mu, sigma = actual.mean(0), actual.std(0)
+    mu64, sigma64 = expected.mean(0), expected.std(0)
+    return {
+        **{f"mu_{n}": ((mu[i] - mu64[i]).abs() / sigma64[i]).item() for i, n in ((0, "x"), (2, "y"))},
+        **{f"sigma_{n}": ((sigma[i] - sigma64[i]).abs() / sigma64[i]).item()
+           for i, n in ((0, "x"), (2, "y"))},
+    }
+
+
+def phase_imported_ares(ctt, wrappers, smi) -> None:
+    """The ARES linac imported from its NX Tables export on the card, 1M
+    float32 particles with seeded magnets, against the port's float64 CPU
+    run; the FODO, cavity and Bmad tutorial lattices the same way; the
+    import through LatticeJSON and back; eager and graph time, launches and
+    idle share."""
+    import tempfile
+
+    lattice = _imported_ares(ctt, torch.float32, "cuda")
+    kinds = {}
+    for element in lattice.elements:
+        kinds[type(element).__name__] = kinds.get(type(element).__name__, 0) + 1
+    length = float(lattice.length.sum())
+    check(len(lattice.elements) == 226 and abs(length - 44.2215) < 1e-3,
+          f"the NX Tables import has {len(lattice.elements)} elements over {length} m")
+    beam = _bench_beam(ctt, NUM_PARTICLES, "cuda", torch.Generator(device="cuda").manual_seed(SEED))
+    beam64 = beam.to("cpu", torch.float64)
+
+    _reset_launches(wrappers)
+    out = lattice.track(beam)
+    launches = _no_cic_launches(wrappers, "the imported ARES linac")
+    finite = bool(torch.isfinite(out.particles).all())
+    out64 = _imported_ares(ctt, torch.float64, "cpu").track(beam64)
+    accuracy = {"ares": _moment_errors(out.particles, out64.particles)}
+
+    with tempfile.TemporaryDirectory() as directory:
+        lattice.to_lattice_json(f"{directory}/ares.json")
+        restored = ctt.Segment.from_lattice_json(f"{directory}/ares.json", dtype=torch.float32,
+                                                 device="cuda")
+    same_bits = bool(torch.equal(restored.track(beam).particles, out.particles))
+
+    files = {}
+    for name, (_, mode) in IMPORTED_FILES.items():
+        segment = _imported_file(ctt, name, torch.float32, "cuda")
+        _reset_launches(wrappers)
+        card = segment.track(beam)
+        _no_cic_launches(wrappers, f"the {name} lattice")
+        files[name] = {
+            "mode": mode, "finite": bool(torch.isfinite(card.particles).all()),
+            "plan": [type(todo).__name__ for todo in segment._plan()],
+            **_moment_errors(card.particles,
+                             _imported_file(ctt, name, torch.float64, "cpu").track(beam64).particles),
+        }
+
+    def step():
+        return lattice.track(beam).particles
+
+    ms = time_ms(step, runs=10)
+    profile = profile_path("imported_ares", step, ms)
+    emit(
+        "imported_ares", card=smi, source="tests/resources/Stage4v3_9.txt",
+        elements=len(lattice.elements), length_m=length, element_kinds=kinds,
+        plan_entries=len(lattice._plan()), particles=NUM_PARTICLES, dtype="float32",
+        ms=ms, graph_ms=graph_ms(step, calls=2, runs=10),
+        kernel_launches=profile["kernel_launches"], device_busy_ms=profile["device_busy_ms"],
+        idle_share=profile["idle_share"], finite=finite, accuracy_vs_cpu_f64=accuracy,
+        lattice_json_bit_equal=same_bits, lattices=files, cic_kernel_launches=launches,
+    )
+    check(finite, "the imported ARES linac: non-finite particles")
+    check(same_bits, "the imported ARES linac through LatticeJSON tracks differently")
+    for name, error in accuracy["ares"].items():
+        check(error <= IMPORTED_RTOL["linear"], f"imported ARES {name} off by {error}")
+    for name, result in files.items():
+        check(result["finite"], f"{name}: non-finite particles")
+        for moment in ("sigma_x", "sigma_y"):
+            check(result[moment] <= IMPORTED_RTOL[result["mode"]],
+                  f"{name} {moment} off by {result[moment]}")
+
+
+def _round_trip_errors(beam, loaded) -> dict:
+    """Each coordinate's largest error over its largest value, and delta's
+    largest error over eps E / p0c."""
+    written = beam.particles.double()
+    error = (loaded.particles.double() - written).abs().amax(dim=0)
+    scale = written.abs().amax(dim=0)
+    eps = torch.finfo(beam.particles.dtype).eps
+    names = ("x", "px", "y", "py", "tau")
+    return {
+        **{name: (error[i] / scale[i]).item() for i, name in enumerate(names)},
+        "p_over_si_bound": (error[5] / (eps * beam.energy.double() / beam.p0c.double())).item(),
+        "charges_equal": bool(torch.equal(loaded.particle_charges, beam.particle_charges)),
+    }
+
+
+def phase_beam_io(ctt, wrappers) -> None:
+    """The 1M float32 card beam through openPMD and back onto the card, then
+    through the 32^3 space-charge segment: the kicks of the read-back beam
+    against the original's, and the CIC launches of space_charge_segment.
+    Without h5py the beam goes through the openPMD records in memory
+    (``ParticleGroupData``), which the file holds."""
+    import tempfile
+
+    from cheetah_tpu_torch.converters.openpmd import ParticleGroupData
+
+    beam = _bench_beam(ctt, NUM_PARTICLES, "cuda", torch.Generator(device="cuda").manual_seed(SEED))
+    try:
+        import h5py  # noqa: F401
+
+        has_h5py = True
+    except ImportError:
+        has_h5py = False
+
+    def round_trip(original, directory, label):
+        start = time.perf_counter()
+        if has_h5py:
+            path = f"{directory}/{label}.h5"
+            original.save_as_openpmd_h5(path)
+        else:
+            group = ParticleGroupData(original._to_openpmd_data())
+        written = time.perf_counter()
+        if has_h5py:
+            loaded = ctt.ParticleBeam.from_openpmd_file(path, energy=original.energy,
+                                                        dtype=original.particles.dtype,
+                                                        device="cuda")
+        else:
+            loaded = ctt.ParticleBeam.from_openpmd_particlegroup(
+                group, energy=original.energy, dtype=original.particles.dtype, device="cuda")
+        torch.cuda.synchronize()
+        return loaded, written - start, time.perf_counter() - written
+
+    with tempfile.TemporaryDirectory() as directory:
+        loaded, write_s, read_s = round_trip(beam, directory, "f32")
+        loaded64, write64_s, read64_s = round_trip(beam.to(dtype=torch.float64), directory, "f64")
+    errors = _round_trip_errors(beam, loaded)
+    errors64 = _round_trip_errors(beam.to(dtype=torch.float64), loaded64)
+
+    segment = _sc_segment(ctt, torch.float32, "cuda")
+    original = segment.track(beam)
+    _reset_launches(wrappers)
+    read_back = segment.track(loaded)
+    launches = _launches(wrappers)
+    expected = {name: 0 for name in wrappers} | {"deposit_multi_3d": 2, "gather_multi_3d": 2}
+    kicks = {}
+    for index, name in ((1, "px"), (3, "py"), (5, "p")):
+        kick = (original.particles[..., index] - beam.particles[..., index]).double()
+        kick_read = (read_back.particles[..., index] - loaded.particles[..., index]).double()
+        kicks[name] = (torch.sqrt(torch.mean((kick_read - kick) ** 2))
+                       / torch.sqrt(torch.mean(kick**2))).item()
+    emit(
+        "beam_io", particles=NUM_PARTICLES, h5py=has_h5py,
+        route="openPMD HDF5 file" if has_h5py else "openPMD records in memory (no h5py)",
+        write_s=write_s, read_s=read_s, write_f64_s=write64_s, read_f64_s=read64_s,
+        device=str(loaded.particles.device), dtype=str(loaded.particles.dtype),
+        round_trip_f32=errors, round_trip_f64=errors64, kick_rms_rel_diff=kicks,
+        launches=launches,
+    )
+    check(loaded.particles.is_cuda and loaded.particles.dtype == torch.float32,
+          f"the read-back beam is {loaded.particles.dtype} on {loaded.particles.device}")
+    eps = torch.finfo(torch.float32).eps
+    for name in ("x", "px", "y", "py", "tau"):
+        check(errors[name] <= BEAM_IO_ULPS * eps, f"openPMD f32 {name} off by {errors[name]}")
+        check(errors64[name] <= BEAM_IO_F64_RTOL, f"openPMD f64 {name} off by {errors64[name]}")
+    check(errors["p_over_si_bound"] <= BEAM_IO_ULPS, f"openPMD f32 delta: {errors}")
+    check(errors64["p_over_si_bound"] * torch.finfo(torch.float64).eps <= BEAM_IO_F64_RTOL,
+          f"openPMD f64 delta: {errors64}")
+    check(errors["charges_equal"] and errors64["charges_equal"], "openPMD changed the charges")
+    check(launches == expected, f"the read-back beam's segment launched {launches}, not {expected}")
+    for name, difference in kicks.items():
+        check(difference <= KICK_RMS_TOLERANCE[name], f"read-back {name} kicks off by {difference}")
+
+
+def _plot_data(ctt, lattice, beam, big_beam) -> tuple[bool, dict]:
+    """What the deploy phase's plots draw: with matplotlib (Agg), the line
+    data of ``plot_overview`` and ``plot_twiss_over_lattice`` of ``lattice``
+    tracking ``beam`` and the line and mesh data of ``plot_distribution`` of
+    ``big_beam``; without matplotlib the same numbers from the plotting
+    module's data functions. Returns whether it drew, and the arrays under
+    ``lattice`` and ``histograms``."""
+    from cheetah_tpu_torch import plotting
+
+    try:
+        import matplotlib
+    except ImportError:
+        dimensions = ("x", "px", "y", "py", "tau", "p")
+        lattice_data = [
+            *plotting.beam_attrs_along_segment(
+                lattice, beam, ("s", "mu_x", "sigma_x", "mu_y", "sigma_y"), broadcast=True),
+            *plotting.beam_attrs_along_segment(lattice, beam, ("s", "beta_x", "beta_y")),
+            plotting.segment_s_positions(lattice),
+        ]
+        histograms = [plotting.histogram_1d(big_beam, d)[1] for d in dimensions] + [
+            plotting.histogram_2d(big_beam, a, b)[0]
+            for a, b in itertools.combinations(dimensions, 2)
+        ]
+        return False, {"lattice": lattice_data, "histograms": histograms}
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    from matplotlib.collections import QuadMesh
+
+    def lines(figure):
+        return [line.get_xydata() for ax in figure.axes for line in ax.get_lines()]
+
+    lattice_data = lines(lattice.plot_overview(beam)) + lines(lattice.plot_twiss_over_lattice(beam))
+    figure, _ = big_beam.plot_distribution()
+    histograms = lines(figure) + [
+        np.ma.filled(collection.get_array(), 0.0)
+        for ax in figure.axes for collection in ax.collections if isinstance(collection, QuadMesh)
+    ]
+    plt.close("all")
+    return True, {"lattice": lattice_data, "histograms": histograms}
+
+
+def _largest_share(actual: list, expected: list) -> float:
+    """The largest difference of matching arrays over the largest value of
+    each expected array."""
+    check(len(actual) == len(expected), f"{len(actual)} plotted arrays, {len(expected)} expected")
+    return max(
+        float(np.max(np.abs(np.asarray(a, np.float64) - b)) / max(np.max(np.abs(b)), 1e-300))
+        for a, b in zip(actual, expected)
+    )
+
+
+def phase_deploy(ctt, wrappers) -> None:
+    """The deployment path on the card: the env step exported by
+    ``torch.export`` with the particle axis symbolic, saved, loaded and run
+    at 10k and 100k particles against eager tracking; the plots of the
+    imported ARES linac (float64, from a card beam whose particles require
+    grad) against the float64 CPU run, and of the 1M float32 beam against
+    the same particles on the CPU;
+    ``utils.profiling`` against chip_smoke's own timer."""
+    import tempfile
+
+    from cheetah_tpu_torch.lattices import ares_ea_subcell
+    from cheetah_tpu_torch.utils import aot, profiling
+
+    segment = ares_ea_subcell(torch.float32, device="cuda")
+    segment.AREAMQZM1.k1 = torch.linspace(-20, 20, 4096, device="cuda")
+    beam = _bench_beam(ctt, 10_000, "cuda", torch.Generator(device="cuda").manual_seed(SEED))
+    step = aot.TrackReadout(segment, "sigma_x", beam.species)
+    start = time.perf_counter()
+    exported = torch.export.export(step, aot.beam_arguments(beam),
+                                   dynamic_shapes=aot.symbolic_particle_beam(beam))
+    export_s = time.perf_counter() - start
+    with tempfile.TemporaryDirectory() as directory:
+        torch.export.save(exported, f"{directory}/env_step.pt2")
+        program = torch.export.load(f"{directory}/env_step.pt2").module()
+
+    _reset_launches(wrappers)
+    runs = {}
+    for num_particles in (10_000, 100_000):
+        other = _bench_beam(ctt, num_particles, "cuda",
+                            torch.Generator(device="cuda").manual_seed(SEED + 1))
+        arguments = aot.beam_arguments(other)
+        got, want = program(*arguments), segment.track(other).sigma_x
+        runs[num_particles] = {
+            "shape": list(got.shape),
+            "rel_err_vs_eager": ((got - want).abs() / want.abs()).max().item(),
+            "loaded_ms": time_ms(lambda: program(*arguments), runs=10),
+            "eager_track_ms": time_ms(lambda: segment.track(other).sigma_x, runs=10),
+        }
+    export_launches = _no_cic_launches(wrappers, "the exported env step")
+
+    def env_step():
+        return segment.track(beam).sigma_x
+
+    own_ms = time_ms(env_step, runs=20)
+    benchmark = profiling.benchmark(env_step, iters=20)
+    stats = profiling.compiled_stats(env_step)
+    slope_s = profiling.timeit_slope(env_step, iters=10, repeats=3)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        lattice64, lattice_cpu = (
+            ctt.Segment.from_nx_tables(RESOURCES / "Stage4v3_9.txt", dtype=torch.float64,
+                                       device=device)
+            for device in ("cuda", "cpu")
+        )
+    plot_beam = _bench_beam(ctt, 100_000, "cuda", torch.Generator(device="cuda").manual_seed(SEED))
+    plot_beam = plot_beam.to(dtype=torch.float64)
+    plot_beam.particles = plot_beam.particles.clone().requires_grad_()
+    big_beam = _bench_beam(ctt, NUM_PARTICLES, "cuda",
+                           torch.Generator(device="cuda").manual_seed(SEED))
+    drew, card = _plot_data(ctt, lattice64, plot_beam, big_beam)
+    _, cpu = _plot_data(ctt, lattice_cpu, plot_beam.to("cpu", torch.float64),
+                        big_beam.to("cpu"))
+    lattice_share = _largest_share(card["lattice"], cpu["lattice"])
+    histogram_share = _largest_share(card["histograms"], cpu["histograms"])
+
+    emit(
+        "deploy", export_s=export_s, symbolic_axis="n", runs=runs,
+        env_step_ms=own_ms, benchmark_mean_ms=benchmark["mean_ms"],
+        benchmark_min_ms=benchmark["min_ms"], timeit_slope_ms=slope_s * 1e3,
+        compiled_stats=stats, plots_drawn=drew, matplotlib=drew,
+        plot_lattice_max_diff_over_largest=lattice_share,
+        plot_histogram_max_diff_over_largest=histogram_share,
+        plotted_arrays={"lattice": len(card["lattice"]), "histograms": len(card["histograms"])},
+        cic_kernel_launches=export_launches,
+    )
+    for num_particles, run in runs.items():
+        check(run["shape"] == [4096], f"exported env step at {num_particles}: {run['shape']}")
+        check(run["rel_err_vs_eager"] <= DEPLOY_RTOL,
+              f"exported env step at {num_particles} off by {run['rel_err_vs_eager']}")
+    ratio = benchmark["mean_ms"] / own_ms
+    check(1 / BENCHMARK_FACTOR <= ratio <= BENCHMARK_FACTOR,
+          f"profiling.benchmark {benchmark['mean_ms']} ms against time_ms {own_ms} ms")
+    check(lattice_share <= PLOT_F64_RTOL, f"plotted lattice data off by {lattice_share}")
+    check(histogram_share == 0.0, f"plotted histograms off by {histogram_share}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; none is available.", file=sys.stderr)
@@ -2837,6 +3254,10 @@ def main() -> int:
     torch.distributed.destroy_process_group()
     shutil.rmtree(store)
     phase_two_rank()
+    # The tenth slice: the imported ARES linac, beam I/O and deployment.
+    phase_imported_ares(ctt, wrappers, smi)
+    phase_beam_io(ctt, wrappers)
+    phase_deploy(ctt, wrappers)
 
     def entry(name, source, replaces, measured, **extra):
         by_path = {"space_charge_segment": segment_launches[name],

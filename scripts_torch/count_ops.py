@@ -8,9 +8,12 @@ operators, one kernel each, for the plain-PyTorch paths).
 
 Counts one call of each mode of the ARES stage-3 lattice
 (``lattices.ares_stage3``: ``ParticleBeam`` in linear, second-order and
-drift-kick-drift mode, ``ParameterBeam`` in linear mode) and, for
-calibration against earlier chip runs, the ARES EA env step. The count does
-not depend on the number of particles. Prints one JSON line.
+drift-kick-drift mode, ``ParameterBeam`` in linear mode), the ARES linac
+imported from its NX Tables export with the magnets chip_smoke.py's
+``imported_ares`` phase sets, the Elegant FODO and cavity lattices and the
+Bmad tutorial lattice, and, for calibration against earlier chip runs, the
+ARES EA env step. The count does not depend on the number of particles.
+Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import pathlib
 import sys
 import warnings
 
+import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -82,6 +86,29 @@ def main() -> None:
         counts[f"stage3_{mode}"] = count(lambda: segment.track(beam).particles)
     segment.set_attrs_on_every_element(tracking_method="linear")
     counts["stage3_parameter_beam"] = count(lambda: segment.track(parameter_beam).sigma_x)
+
+    resources = pathlib.Path(__file__).resolve().parents[1] / "tests" / "resources"
+    imported = ctt.Segment.from_nx_tables(resources / "Stage4v3_9.txt", **cpu)
+    # chip_smoke.py's seeded magnets: k1 in +-5, angles in +-1e-4, seed 0.
+    rng = np.random.default_rng(0)
+    quadrupoles = [e for e in imported.elements if isinstance(e, ctt.Quadrupole)]
+    correctors = [e for e in imported.elements
+                  if isinstance(e, (ctt.HorizontalCorrector, ctt.VerticalCorrector))]
+    for quadrupole, k1 in zip(quadrupoles, rng.uniform(-5.0, 5.0, len(quadrupoles))):
+        quadrupole.k1 = float(k1)
+    for corrector, angle in zip(correctors, rng.uniform(-1e-4, 1e-4, len(correctors))):
+        corrector.angle = float(angle)
+    plans["imported_ares"] = len(imported._plan())
+    counts["imported_ares"] = count(lambda: imported.track(beam).particles)
+    files = {
+        "fodo": lambda: ctt.Segment.from_elegant(resources / "fodo.lte", "fodo", **cpu),
+        "cavity": lambda: ctt.Segment.from_elegant(resources / "cavity.lte", "cavity", **cpu),
+        "bmad_tutorial": lambda: ctt.Segment.from_bmad(
+            resources / "bmad_tutorial_lattice.bmad", **cpu),
+    }
+    for name, build in files.items():
+        lattice = build()
+        counts[name] = count(lambda: lattice.track(beam).particles)
     print(json.dumps({"dispatched_ops": counts, "plan_entries": plans}))
 
 

@@ -48,42 +48,9 @@ PARAMETER_EXCLUSIONS = {
 }
 
 #: Public names of cheetah_tpu that the port does not have yet, each with
-#: its ROADMAP Queue 1 item. This list may only shrink.
-NOT_YET_PORTED = {
-    # Item 9, converters and I/O.
-    "converters": 9,
-    "Beam.from_astra": 9,
-    "Beam.from_ocelot": 9,
-    "ParameterBeam.from_astra": 9,
-    "ParameterBeam.from_ocelot": 9,
-    "ParticleBeam.from_astra": 9,
-    "ParticleBeam.from_elegant": 9,
-    "ParticleBeam.from_ocelot": 9,
-    "ParticleBeam.from_openpmd_file": 9,
-    "ParticleBeam.from_openpmd_particlegroup": 9,
-    "ParticleBeam.save_as_openpmd_h5": 9,
-    "ParticleBeam.to_openpmd_particlegroup": 9,
-    "Segment.from_bmad": 9,
-    "Segment.from_elegant": 9,
-    "Segment.from_nx_tables": 9,
-    "Segment.from_ocelot": 9,
-    # Item 9, plotting.
-    "plotting": 9,
-    "Element.plot": 9,
-    "ParticleBeam.PRETTY_DIMENSION_LABELS": 9,
-    "ParticleBeam.plot_1d_distribution": 9,
-    "ParticleBeam.plot_2d_distribution": 9,
-    "ParticleBeam.plot_distribution": 9,
-    "ParticleBeam.plot_point_cloud": 9,
-    "Segment.plot_beam_attrs": 9,
-    "Segment.plot_beam_attrs_over_lattice": 9,
-    "Segment.plot_mean_and_std": 9,
-    "Segment.plot_overview": 9,
-    "Segment.plot_twiss": 9,
-    "Segment.plot_twiss_over_lattice": 9,
-    # Item 9, not queued: needs trimesh and a download.
-    "Element.to_mesh": 9,
-}
+#: its ROADMAP Queue 1 item. This list may only shrink; since the tenth
+#: slice it is empty.
+NOT_YET_PORTED: dict[str, int] = {}
 
 #: Names this slice ported; none may stand in NOT_YET_PORTED.
 STRUCTURE_NAMES = [
@@ -216,7 +183,7 @@ def test_not_yet_ported_lists_only_missing_names():
         if any(hasattr(obj, member) for obj in holders):
             stale.append(qualified)
     assert stale == [], f"ported, so remove from NOT_YET_PORTED: {stale}"
-    assert set(NOT_YET_PORTED.values()) == {9}
+    assert NOT_YET_PORTED == {}
 
 
 def test_structure_operations_are_not_on_the_list():
@@ -340,3 +307,84 @@ def test_multi_device_class_members_and_parameters(name):
         if callable(theirs) and callable(ours) and _parameters(theirs) is not None:
             missing = [p for p in _parameters(theirs) if p not in _parameters(ours)]
             assert missing == [], f"{name}.{member}: parameters without counterpart: {missing}"
+
+
+# ---------------------------------------------------------------------------
+# The converters, plotting and the auxiliary utilities (Queue 1 item 9)
+# ---------------------------------------------------------------------------
+
+#: Names of ``cheetah_tpu.utils.__all__`` that are JAX pytree or PRNG
+#: machinery, each with the port's counterpart.
+UTILS_IDIOM_EXCLUSIONS = {
+    # A jax PRNG key -> the `generator=` (a torch.Generator) of every
+    # function that draws.
+    "ensure_key": "generator",
+    "next_key": "generator",
+    "seed": "generator",
+    # Pytree dataclass fields -> nn.Module buffers (physical parameters)
+    # and plain attributes (configuration).
+    "pytree_dataclass": "nn.Module",
+    "static_field": "nn.Module",
+    "axis_field": "nn.Module",
+}
+
+#: Parameters that the port names in torch's idiom: a jax PRNG key is a
+#: torch.Generator, numpy's and jax's ``axis`` is torch's ``dim``.
+PARAMETER_RENAMES = {"key": "generator", "axis": "dim"}
+
+AUX_MODULES = [
+    "converters", "converters.astra", "converters.bmad", "converters.elegant",
+    "converters.expressions", "converters.lattice_files", "converters.nxtables",
+    "converters.ocelot", "converters.openpmd", "plotting", "utils", "utils.aot",
+    "utils.assets", "utils.plot", "utils.profiling", "utils.vector",
+]
+
+
+def _public_names(module) -> list[str]:
+    """A package's ``__all__``, a module's public functions and classes."""
+    if hasattr(module, "__all__"):
+        return list(module.__all__)
+    return [
+        name
+        for name, value in vars(module).items()
+        if (inspect.isfunction(value) or inspect.isclass(value))
+        and value.__module__ == module.__name__ and not name.startswith("_")
+    ]
+
+
+AUX_NAMES = [
+    (module, name)
+    for module in AUX_MODULES
+    for name in _public_names(importlib.import_module(f"cheetah_tpu.{module}"))
+    if not (module == "utils" and name in UTILS_IDIOM_EXCLUSIONS)
+]
+
+
+@pytest.mark.parametrize("module, name", AUX_NAMES, ids=[f"{m}.{n}" for m, n in AUX_NAMES])
+def test_aux_names_present(module, name):
+    """Every name of ``cheetah_tpu.converters.__all__`` and
+    ``cheetah_tpu.utils.__all__`` (but the idiom exclusions), and every
+    public function and class of the converter modules, ``plotting``,
+    ``utils.aot``, ``utils.assets``, ``utils.plot``, ``utils.profiling`` and
+    ``utils.vector`` exists in the port, and the port's function accepts
+    every parameter of the JAX function (or its torch name,
+    ``PARAMETER_RENAMES``)."""
+    theirs = getattr(importlib.import_module(f"cheetah_tpu.{module}"), name)
+    port_module = importlib.import_module(f"cheetah_tpu_torch.{module}")
+    assert hasattr(port_module, name), f"cheetah_tpu_torch.{module}.{name}"
+    ours = getattr(port_module, name)
+    if inspect.isfunction(theirs):
+        missing = [p for p in _parameters(theirs) if p not in _parameters(ours)
+                   and PARAMETER_RENAMES.get(p) not in _parameters(ours)]
+        assert missing == [], f"{module}.{name}: parameters without counterpart: {missing}"
+
+
+def test_utils_idiom_exclusions_are_jax_machinery():
+    """Each exclusion is a name of ``cheetah_tpu.utils.__all__`` that the
+    port does not export."""
+    import cheetah_tpu.utils as jax_utils
+    import cheetah_tpu_torch.utils as port_utils
+
+    for name in UTILS_IDIOM_EXCLUSIONS:
+        assert name in jax_utils.__all__ and not hasattr(port_utils, name), name
+

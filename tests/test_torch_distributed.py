@@ -7,7 +7,8 @@ to race for between test workers) and run explicit SPMD on their own blocks:
 - ``flat`` (2 ranks): instance-axis tracking, linear and second order; the
   particle-sharded space-charge kick (4000 particles, 8^3) with its loss and
   gradients; the same gradient with a plain in-place all-reduce, which must
-  lose the other rank's terms; ``BatchedLatticeEnv`` over the instance
+  lose the other rank's terms; ``torch.func.jvp`` and ``vmap`` through the
+  sharded 32^3 kick against one process; ``BatchedLatticeEnv`` over the instance
   axis; the audit of its grad step; ``replicate``; a sharded checkpoint.
 - ``hybrid`` (4 ranks): a 2 x 2 hybrid mesh, the kick with
   ``particle_axis=("hosts", "devices")``, and the audit's axis attribution.
@@ -273,6 +274,19 @@ def test_plain_in_place_all_reduce_loses_the_gradient(flat, expected):
     for result in ranks:
         plain = float(result["grad_drift_length_plain"])
         assert not np.isclose(plain, expected["grad_drift_length"], rtol=1e-8, atol=0.0), plain
+
+
+@pytest.mark.parametrize("name", ["value", "jvp", "vmap"])
+def test_func_transforms_through_the_collectives_match_one_process(flat, name):
+    """``torch.func.jvp`` and ``torch.func.vmap`` of the particle-sharded
+    32^3 kick's loss: the all-reduces' jvp and vmap rules give each rank
+    the one-process values (``_AllReduce`` without them fails under both
+    transforms)."""
+    _, ranks = flat
+    for result in ranks:
+        np.testing.assert_allclose(result[f"func_{name}"], result[f"func_{name}_one_process"],
+                                   rtol=1e-10)
+    assert ranks[0][f"func_{name}"].shape == ((2,) if name == "vmap" else ())
 
 
 def test_env_grad_steps_over_the_instance_axis_match_jax(flat, expected):

@@ -14,7 +14,8 @@ Jobs:
 - ``flat`` (2 ranks): instance-axis tracking (linear and second order),
   the particle-sharded space-charge kick and its gradients (also with a
   plain in-place all-reduce in place of the port's, which must lose the
-  other rank's terms), ``BatchedLatticeEnv`` over the instance axis, the
+  other rank's terms), ``torch.func.jvp`` and ``vmap`` through the sharded
+  32^3 kick, ``BatchedLatticeEnv`` over the instance axis, the
   collective audit of its grad step, ``all_gather``, ``replicate`` and a
   sharded checkpoint.
 - ``hybrid`` (4 ranks): a 2 x 2 hybrid mesh, the kick with
@@ -107,6 +108,49 @@ def kick_results(beam, particle_axis, num_particles) -> dict:
     }
 
 
+FUNC_GRID = (32, 32, 32)
+
+
+def func_transform_results(beam, particle_axis, num_particles) -> dict:
+    """``torch.func.jvp`` and ``torch.func.vmap`` of the 32^3 kick's loss,
+    mean(px^2) over all particles, as functions of the particles: sharded
+    over ``particle_axis`` (this rank's rows, the loss all-reduced) and in
+    one process on all rows (``particle_axis=None``, the same on every
+    rank). The direction and the second point of the vmap are made from
+    the particles, so both runs see the same rows."""
+
+    def loss_function(axis, count):
+        kick = ctt.SpaceChargeKick(torch.tensor(0.25, dtype=F64), grid_shape=FUNC_GRID,
+                                   particle_axis=axis, device=CPU)
+
+        def loss(particles):
+            kicked = kick.track(ctt.ParticleBeam(particles, beam.energy,
+                                                 particle_charges=charges)).particles
+            share = torch.sum(kicked[..., 1] ** 2) / count
+            return share if axis is None else collectives.all_reduce(share, axis)
+
+        return loss
+
+    def transforms(particles, axis):
+        direction = particles * torch.linspace(0.5, 1.5, 7, dtype=F64)
+        direction[..., 6] = 0.0
+        loss = loss_function(axis, num_particles)
+        value, tangent = torch.func.jvp(loss, (particles,), (direction,))
+        mapped = torch.func.vmap(loss)(torch.stack([particles, particles * 1.1]))
+        return {"value": value, "jvp": tangent, "vmap": mapped}
+
+    charges = beam.particle_charges
+    sharded = transforms(beam.particles, particle_axis)
+    full = collectives.all_gather(beam.particles, particle_axis)
+    charges = collectives.all_gather(beam.particle_charges, particle_axis)
+    one_process = transforms(full, None)
+    return {
+        **{f"func_{name}": value.detach().numpy() for name, value in sharded.items()},
+        **{f"func_{name}_one_process": value.detach().numpy()
+           for name, value in one_process.items()},
+    }
+
+
 class _PlainAllReduce(torch.autograd.Function):
     """``torch.distributed.all_reduce`` as code that forgets autograd would
     call it: in place, its backward the identity."""
@@ -162,6 +206,7 @@ def job_flat(inputs, rank: int) -> dict:
         local = shard_beam(sc_beam, particles, particle_axis="particles")
         results.update(kick_results(local, "particles", count))
         results["grad_drift_length_plain"] = plain_all_reduce_gradient(local, "particles", count)
+        results.update(func_transform_results(local, "particles", count))
     # The same through a ProcessGroup instead of a name.
     group = particles.get_group("particles")
     results["kicked_by_group"] = ctt.SpaceChargeKick(
