@@ -1,6 +1,8 @@
-"""What the untiled and the x-tiled CIC kernel pairs share: the orders and
-their C argument, the validation of a deposit's and a gather's arguments,
-and the per-corner sums from which both pairs' plain versions are built.
+"""What the untiled and the x-tiled CIC kernel pairs share: the orders, as
+the C entry points and the operators' schemas take them, the definition of
+an operator (:func:`define_operator`), the validation of a deposit's and a
+gather's arguments, and the per-corner sums from which both pairs' plain
+versions are built.
 
 :mod:`cheetah_tpu_torch.ops.cic_tiled` and
 :mod:`cheetah_tpu_torch.ops.cic_kernels` both import this module; it
@@ -17,7 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 
@@ -47,6 +49,31 @@ def _checked_orders(orders) -> tuple[tuple[int, int, int], ...]:
     if any(len(order) != 3 or any(v not in (0, 1) for v in order) for order in orders):
         raise ValueError(f"Orders must be (ox, oy, ot) triples of 0 and 1: {orders}")
     return orders
+
+
+def orders_flat(orders: Orders) -> tuple[int, ...]:
+    """The orders, checked, as the operators' schemas take them: ``3 * O``
+    ints, ``(ox, oy, ot)`` of each order in turn."""
+    return _flat_of(check_orders(orders))
+
+
+@functools.lru_cache(maxsize=256)
+def _flat_of(orders: tuple[tuple[int, int, int], ...]) -> tuple[int, ...]:
+    return tuple(v for order in orders for v in order)
+
+
+@functools.lru_cache(maxsize=256)
+def _orders_of_flat(flat: tuple[int, ...]) -> tuple[tuple[int, int, int], ...]:
+    if len(flat) % 3:
+        raise ValueError(f"A flat order list holds 3 ints an order: {flat}")
+    return check_orders(tuple(zip(flat[0::3], flat[1::3], flat[2::3])))
+
+
+def orders_from_flat(flat: Sequence[int]) -> tuple[tuple[int, int, int], ...]:
+    """The inverse of :func:`orders_flat`, checked as :func:`check_orders`
+    checks orders: what an operator's implementation gets back as a tuple
+    of triples."""
+    return _orders_of_flat(tuple(flat))
 
 
 @functools.lru_cache(maxsize=256)
@@ -125,6 +152,39 @@ def window_blocks(particles: int, limits: DeviceLimits, shared: int) -> int:
     resident = resident_blocks(shared, limits)
     needed = -(-particles // MAX_WINDOW_PARTICLES)
     return -(-needed // resident) * resident
+
+
+# ---------------------------------------------------------------------------
+# The kernels as operators of the dispatcher
+# ---------------------------------------------------------------------------
+
+#: The namespace of the port's operators: ``torch.ops.cheetah_tpu_torch``.
+NAMESPACE = "cheetah_tpu_torch"
+
+
+def define_operator(
+    name: str, schema: str, plain: Callable, kernel: Callable, fake: Callable
+) -> torch._ops.OpOverload:
+    """The operator ``cheetah_tpu_torch::<name>`` with ``schema``, defined
+    with ``torch.library.custom_op`` at the first import of its module.
+
+    ``plain`` is its implementation for CPU tensors (a kernel's plain
+    version), ``kernel`` for CUDA tensors (the launch of the hand-written
+    kernel) and ``fake`` its fake (meta) implementation, which gives the
+    outputs' shapes and dtypes to ``torch.export`` and ``torch.compile``
+    (the counterpart of a JAX primitive's abstract evaluation). No other
+    implementation is registered: a tensor on another device raises in the
+    dispatcher, and a CUDA tensor never reaches a plain version. An
+    operator defined already (its module imported again) is returned as
+    it is."""
+    namespace = getattr(torch.ops, NAMESPACE)
+    if not hasattr(namespace, name):
+        operator = torch.library.custom_op(
+            f"{NAMESPACE}::{name}", plain, mutates_args=(), device_types="cpu", schema=schema
+        )
+        operator.register_kernel("cuda")(kernel)
+        operator.register_fake(fake)
+    return getattr(namespace, name).default
 
 
 def _check_device(*tensors: torch.Tensor) -> str:

@@ -27,19 +27,33 @@ Dispatch, the rule of the JAX package (``pallas_cic.py:220-224``,
 ``:300-305``): a grid that fails :func:`fits_untiled` and passes
 :func:`~cheetah_tpu_torch.ops.cic_tiled.tiled_bounds_ok` goes to the x-tiled
 pair of :mod:`cheetah_tpu_torch.ops.cic_tiled`; every other grid goes to the
-untiled pair here, which takes any grid size. CPU tensors run the plain
-version of the chosen pair; CUDA tensors launch the chosen kernel or raise.
-There is no fallback from the card to a plain version. The launches of the
-untiled kernels are counted in ``deposit_multi_3d.launches`` and
-``gather_multi_3d.launches``, those of the tiled ones in the tiled wrappers'
-own ``launches``.
+untiled pair here, which takes any grid size.
+
+Each kernel entry point is a ``torch.library`` operator, the counterpart of
+the JAX package's primitives (``pallas_cic.py:536-538``): here
+``cheetah_tpu_torch::cic_deposit_multi`` (:data:`DEPOSIT_MULTI`) and
+``cheetah_tpu_torch::cic_gather_multi`` (:data:`GATHER_MULTI`), whose
+orders are a flat ``int[]``. The dispatcher picks the implementation by the
+device of the tensors: the plain version for CPU tensors, the kernel for
+CUDA tensors, and for the fake tensors of ``torch.export`` the fake
+implementation, which gives the output's shape (the counterpart of
+``def_abstract_eval``, ``:564``, ``:645``). No other implementation is
+registered, so there is no fallback from the card to a plain version, and
+everything that depends on the particle count (the zero-size branches, the
+launch geometry, the device's limits) stays inside the implementations: a
+program exported with a symbolic particle axis holds the operators, and
+launches the kernels when it is called on CUDA tensors. The CUDA
+implementations count their launches in ``deposit_multi_3d.launches`` and
+``gather_multi_3d.launches``, those of the tiled pair in the tiled
+wrappers' own ``launches``.
 
 Gradients: :class:`GatherMulti` and :class:`DepositMulti` are the autograd
-closure of the pair (``pallas_cic.py:536-750``), in the form ``torch.func``
-transforms: a ``backward`` (the transposes), a ``jvp`` (forward mode, so
-``torch.func.jvp``, ``jacfwd``, ``hessian`` and
-``torch.autograd.forward_ad``) and a ``vmap`` rule that folds the mapped
-dimension into the kernels' batch axis. Each rule calls the two Functions
+closure of the pair (``pallas_cic.py:536-750``; the operators carry no
+autograd rule of their own, since ``torch.library`` has no forward-mode
+one), in the form ``torch.func`` transforms: a ``backward`` (the
+transposes), a ``jvp`` (forward mode, so ``torch.func.jvp``, ``jacfwd``,
+``hessian`` and ``torch.autograd.forward_ad``) and a ``vmap`` rule that
+folds the mapped dimension into the kernels' batch axis. Each rule calls the two Functions
 again, at the same or raised orders, so every transform and composition,
 up to orders ``(1, 1, 1)``, runs on the kernels too. On a grid of the tiled
 pair each Function makes the plan of its positions once, in forward
@@ -64,9 +78,12 @@ from cheetah_tpu_torch.ops.cic_common import (
     check_deposit_args,
     check_gather_args,
     check_orders,
+    define_operator,
     deposit_cells,
     gather_cells,
     orders_argument,
+    orders_flat,
+    orders_from_flat,
 )
 from cheetah_tpu_torch.ops.nvcc import CudaLibrary
 from cheetah_tpu_torch.utils.maths import presigned
@@ -177,17 +194,26 @@ def untiled_deposit_geometry(
     return UntiledDepositGeometry(group, copies, shared)
 
 
-def _deposit_untiled(normalized, rows, histogram_shape, orders) -> torch.Tensor:
-    """The untiled deposit on arguments :func:`check_deposit_args` passed:
-    on CUDA tensors ``deposit_private_kernel`` where
-    :func:`untiled_deposit_geometry` finds a launch (its copies summed by
-    ``deposit_reduce_kernel``), else ``deposit_multi_kernel``; shared- or
-    global-memory atomics, so the sum order, and with it the last bits,
-    change from run to run. :func:`deposit_multi_3d_reference` on CPU
-    tensors."""
-    if normalized.device.type == "cpu":
-        return deposit_multi_3d_reference(normalized, rows, histogram_shape, orders)
+# ---------------------------------------------------------------------------
+# The untiled pair as operators: the plain version for CPU tensors, the
+# kernel for CUDA tensors, the output shapes for fake tensors.
+# ---------------------------------------------------------------------------
 
+
+def _deposit_plain(normalized, rows, histogram_shape, orders_flat) -> torch.Tensor:
+    """``cic_deposit_multi`` on CPU tensors: :func:`deposit_multi_3d_reference`."""
+    return deposit_multi_3d_reference(
+        normalized, rows, tuple(histogram_shape), orders_from_flat(orders_flat)
+    )
+
+
+def _deposit_kernel(normalized, rows, histogram_shape, orders_flat) -> torch.Tensor:
+    """``cic_deposit_multi`` on CUDA tensors: ``deposit_private_kernel``
+    where :func:`untiled_deposit_geometry` finds a launch (its copies summed
+    by ``deposit_reduce_kernel``), else ``deposit_multi_kernel``; shared- or
+    global-memory atomics, so the sum order, and with it the last bits,
+    change from run to run. Counts its launch in
+    ``deposit_multi_3d.launches``."""
     batch, _, num_components, num_particles = rows.shape
     normalized = normalized.contiguous()
     rows = rows.contiguous()
@@ -214,38 +240,82 @@ def _deposit_untiled(normalized, rows, histogram_shape, orders) -> torch.Tensor:
         normalized.data_ptr(), rows.data_ptr(), out.data_ptr(),
         0 if scratch is None else scratch.data_ptr(),
         batch, num_particles, num_components, *histogram_shape, group, copies,
-        *orders_argument(orders),
+        *orders_argument(orders_from_flat(orders_flat)),
     )
     deposit_multi_3d.launches += 1
     return out
 
 
-def _gather_untiled(grids, normalized, orders) -> tuple[torch.Tensor, ...]:
-    """The untiled gather on arguments :func:`check_gather_args` passed:
-    ``gather_staged_kernel`` where a component of the grid fits shared
-    memory (the value and raised order sets), else ``gather_multi_kernel``,
-    on CUDA tensors; :func:`gather_multi_3d_reference` on CPU tensors."""
-    if grids.device.type == "cpu":
-        return gather_multi_3d_reference(grids, normalized, orders)
+def _deposit_fake(normalized, rows, histogram_shape, orders_flat) -> torch.Tensor:
+    return rows.new_empty((rows.shape[0], rows.shape[2], *histogram_shape))
 
+
+#: ``cheetah_tpu_torch::cic_deposit_multi``: the untiled deposit, ``(B, C,
+#: nx, ny, nt)`` from ``normalized (B, N, 3)`` and ``rows (B, O, C, N)``.
+DEPOSIT_MULTI = define_operator(
+    "cic_deposit_multi",
+    "(Tensor normalized, Tensor rows, int[] histogram_shape, int[] orders_flat) -> Tensor",
+    _deposit_plain, _deposit_kernel, _deposit_fake,
+)
+
+
+def _gather_plain(grids, normalized, orders_flat) -> torch.Tensor:
+    """``cic_gather_multi`` on CPU tensors: :func:`gather_multi_3d_reference`,
+    its outputs stacked."""
+    return torch.stack(
+        gather_multi_3d_reference(grids, normalized, orders_from_flat(orders_flat))
+    )
+
+
+def _gather_kernel(grids, normalized, orders_flat) -> torch.Tensor:
+    """``cic_gather_multi`` on CUDA tensors: ``gather_staged_kernel`` where a
+    component of the grid fits shared memory (the value and raised order
+    sets), else ``gather_multi_kernel``. Counts its launch in
+    ``gather_multi_3d.launches``."""
+    orders = orders_from_flat(orders_flat)
     batch, num_components, nx, ny, nt = grids.shape
     num_particles = normalized.shape[1]
-    grids = grids.contiguous()
-    normalized = normalized.contiguous()
     out = torch.empty(
         (len(orders), batch, num_components, num_particles),
         dtype=grids.dtype,
         device=grids.device,
     )
     if batch * num_particles * num_components == 0:
-        return out.unbind(0)
+        return out
+    grids = grids.contiguous()
+    normalized = normalized.contiguous()
     LIBRARY.launch(
         "cic_gather_multi", grids.dtype, grids.device,
         grids.data_ptr(), normalized.data_ptr(), out.data_ptr(),
         batch, num_particles, num_components, nx, ny, nt, *orders_argument(orders),
     )
     gather_multi_3d.launches += 1
-    return out.unbind(0)
+    return out
+
+
+def _gather_fake(grids, normalized, orders_flat) -> torch.Tensor:
+    return grids.new_empty((len(orders_flat) // 3, *grids.shape[:2], normalized.shape[1]))
+
+
+#: ``cheetah_tpu_torch::cic_gather_multi``: the untiled gather, ``(O, B, C,
+#: N)`` from ``grids (B, C, nx, ny, nt)`` and ``normalized (B, N, 3)``.
+GATHER_MULTI = define_operator(
+    "cic_gather_multi",
+    "(Tensor grids, Tensor normalized, int[] orders_flat) -> Tensor",
+    _gather_plain, _gather_kernel, _gather_fake,
+)
+
+
+def _deposit_untiled(normalized, rows, histogram_shape, orders) -> torch.Tensor:
+    """The untiled deposit (``cic_deposit_multi``) on arguments
+    :func:`check_deposit_args` passed."""
+    return DEPOSIT_MULTI(normalized, rows, histogram_shape, orders_flat(orders))
+
+
+def _gather_untiled(grids, normalized, orders) -> tuple[torch.Tensor, ...]:
+    """The untiled gather (``cic_gather_multi``) on arguments
+    :func:`check_gather_args` passed, one output per order."""
+    return GATHER_MULTI(grids, normalized, orders_flat(orders)).unbind(0)
 
 
 def _no_plan(plan) -> None:

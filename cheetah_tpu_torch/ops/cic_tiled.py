@@ -59,9 +59,17 @@ particles at 128^3; PERF.md):
   component and order, where the TPU's two-hot products would multiply
   thousands of zeros for every 8 non-zeros.
 
-CPU tensors run the plain versions; CUDA tensors launch the kernels or
-raise. Each wrapper counts its kernel launches in ``launches``;
-:func:`tile_plan` counts its calls in ``calls``.
+The plan and the two kernels are ``torch.library`` operators, as the
+untiled pair is (:mod:`cheetah_tpu_torch.ops.cic_kernels`):
+``cheetah_tpu_torch::cic_tile_plan`` (:data:`TILE_PLAN`),
+``cic_deposit_tiled`` (:data:`DEPOSIT_TILED`) and ``cic_gather_tiled``
+(:data:`GATHER_TILED`), the last two taking the plan's tensors. CPU tensors
+run the plain versions, CUDA tensors launch the kernels or raise, fake
+tensors get the outputs' shapes; the plan's count scratch, sized from the
+particle count, stays inside the CUDA implementation, and ``R`` and ``T``
+are Python ints of the static grid. Each CUDA implementation counts its
+launches in its wrapper's ``launches``; :func:`tile_plan` counts its calls
+in ``calls``.
 """
 
 from __future__ import annotations
@@ -196,23 +204,26 @@ def tile_plan(normalized: torch.Tensor, histogram_shape) -> TilePlan:
 tile_plan.calls = 0
 
 
-def plan_tiles(normalized: torch.Tensor, histogram_shape) -> TilePlan:
-    """The plan of ``normalized (B, N, 3)`` on ``histogram_shape``. CUDA
-    tensors launch the counting-sort kernels of ``cic_tiled.cu`` (two or
-    three launches, counted once in ``launches``), whose plan equals
-    :func:`tile_plan`'s exactly, the sort being stable; CPU tensors run
-    :func:`tile_plan`."""
-    if normalized.dim() != 3 or normalized.shape[-1] != 3:
-        raise ValueError(f"normalized must be (B, N, 3): {tuple(normalized.shape)}")
-    histogram_shape = tuple(int(n) for n in histogram_shape)
-    if not tiled_bounds_ok(histogram_shape):
-        raise ValueError(f"The grid is past the tiled kernels' bounds: {histogram_shape}")
-    if normalized.device.type == "cpu":
-        return tile_plan(normalized, histogram_shape)
-
-    batch, num_particles, _ = normalized.shape
+@functools.lru_cache(maxsize=256)
+def _tiling(histogram_shape: tuple[int, int, int]) -> tuple[int, int]:
+    """``(R, T)``: grid rows per x-tile and the number of tiles, Python
+    ints of the static grid."""
     rows = rows_per_tile(histogram_shape)
-    num_tiles = -(-histogram_shape[0] // rows)
+    return rows, -(-histogram_shape[0] // rows)
+
+
+def _plan_plain(normalized, histogram_shape) -> tuple[torch.Tensor, ...]:
+    """``cic_tile_plan`` on CPU tensors: :func:`tile_plan`'s tensors."""
+    return tuple(tile_plan(normalized, tuple(histogram_shape))[2:])
+
+
+def _plan_kernel(normalized, histogram_shape) -> tuple[torch.Tensor, ...]:
+    """``cic_tile_plan`` on CUDA tensors: the counting-sort kernels of
+    ``cic_tiled.cu`` (two or three launches, counted once in
+    ``plan_tiles.launches``), whose plan equals :func:`tile_plan`'s
+    exactly, the sort being stable."""
+    batch, num_particles, _ = normalized.shape
+    rows, num_tiles = _tiling(tuple(histogram_shape))
     device = normalized.device
     sorted_tile = torch.empty((batch, num_particles), dtype=torch.int32, device=device)
     perm = torch.empty((batch, num_particles), dtype=torch.int64, device=device)
@@ -222,9 +233,8 @@ def plan_tiles(normalized: torch.Tensor, histogram_shape) -> TilePlan:
     offsets = (torch.zeros if empty else torch.empty)(
         (batch, num_tiles + 1), dtype=torch.int64, device=device
     )
-    plan = TilePlan(rows, num_tiles, sorted_tile, perm, offsets, sorted_positions, rank)
     if empty:
-        return plan
+        return sorted_tile, perm, offsets, sorted_positions, rank
     counts = torch.empty(
         batch * num_tiles * -(-num_particles // _PLAN_SLICE), dtype=torch.int32, device=device
     )
@@ -236,7 +246,42 @@ def plan_tiles(normalized: torch.Tensor, histogram_shape) -> TilePlan:
         offsets.data_ptr(), batch, num_particles, rows, num_tiles,
     )
     plan_tiles.launches += 1
-    return plan
+    return sorted_tile, perm, offsets, sorted_positions, rank
+
+
+def _plan_fake(normalized, histogram_shape) -> tuple[torch.Tensor, ...]:
+    batch, num_particles, _ = normalized.shape
+    _, num_tiles = _tiling(tuple(histogram_shape))
+    return (
+        normalized.new_empty((batch, num_particles), dtype=torch.int32),
+        normalized.new_empty((batch, num_particles), dtype=torch.int64),
+        normalized.new_empty((batch, num_tiles + 1), dtype=torch.int64),
+        normalized.new_empty((batch, num_particles, 3)),
+        normalized.new_empty((batch, num_particles), dtype=torch.int64),
+    )
+
+
+#: ``cheetah_tpu_torch::cic_tile_plan``: the tensors of a :class:`TilePlan`
+#: (``sorted_tile``, ``perm``, ``offsets``, ``sorted_positions``, ``rank``)
+#: of ``normalized (B, N, 3)`` on a grid.
+TILE_PLAN = cic_common.define_operator(
+    "cic_tile_plan",
+    "(Tensor normalized, int[] histogram_shape) -> "
+    "(Tensor sorted_tile, Tensor perm, Tensor offsets, Tensor sorted_positions, Tensor rank)",
+    _plan_plain, _plan_kernel, _plan_fake,
+)
+
+
+def plan_tiles(normalized: torch.Tensor, histogram_shape) -> TilePlan:
+    """The plan of ``normalized (B, N, 3)`` on ``histogram_shape``, made by
+    the operator ``cic_tile_plan``: on CUDA tensors the counting-sort
+    kernels, on CPU tensors :func:`tile_plan`."""
+    if normalized.dim() != 3 or normalized.shape[-1] != 3:
+        raise ValueError(f"normalized must be (B, N, 3): {tuple(normalized.shape)}")
+    histogram_shape = tuple(int(n) for n in histogram_shape)
+    if not tiled_bounds_ok(histogram_shape):
+        raise ValueError(f"The grid is past the tiled kernels' bounds: {histogram_shape}")
+    return TilePlan(*_tiling(histogram_shape), *TILE_PLAN(normalized, histogram_shape))
 
 
 plan_tiles.launches = 0
@@ -372,46 +417,37 @@ def gather_multi_tiled_3d_reference(
 
 
 # ---------------------------------------------------------------------------
-# Wrappers
+# The tiled pair as operators, and their wrappers
 # ---------------------------------------------------------------------------
 
 
-def deposit_multi_tiled_3d(
-    normalized: torch.Tensor,
-    rows: torch.Tensor,
-    histogram_shape: tuple[int, int, int],
-    orders: cic_common.Orders,
-    plan: TilePlan | None = None,
-) -> torch.Tensor:
-    """x-tiled multi-order CIC deposit, with the contract of
-    :func:`cheetah_tpu_torch.ops.cic_kernels.deposit_multi_3d`.
+def _given_plan(histogram_shape, sorted_tile, perm, offsets, sorted_positions, rank) -> TilePlan:
+    return TilePlan(*_tiling(tuple(histogram_shape)), sorted_tile, perm, offsets,
+                    sorted_positions, rank)
 
-    CUDA tensors launch ``deposit_tiled_kernel`` on the plan's sorted
-    positions, sized by :func:`tiled_deposit_geometry` (atomic adds, so the
-    last bits change from run to run); CPU tensors run
-    :func:`deposit_multi_tiled_3d_reference`. ``plan``, made by
-    :func:`plan_tiles` from ``normalized`` on this grid, saves making it
-    here.
-    """
-    orders, histogram_shape = cic_common.check_deposit_args(
-        normalized, rows, histogram_shape, orders
-    )
-    if not tiled_bounds_ok(histogram_shape):
-        raise ValueError(f"The grid is past the tiled kernels' bounds: {histogram_shape}")
-    if normalized.device.type == "cpu":
-        return deposit_multi_tiled_3d_reference(
-            normalized, rows, histogram_shape, orders, plan=plan
-        )
 
+def _deposit_plain(normalized, rows, histogram_shape, orders_flat, *plan) -> torch.Tensor:
+    """``cic_deposit_tiled`` on CPU tensors:
+    :func:`deposit_multi_tiled_3d_reference` on the plan given."""
+    return deposit_multi_tiled_3d_reference(
+        normalized, rows, tuple(histogram_shape), cic_common.orders_from_flat(orders_flat),
+        plan=_given_plan(histogram_shape, *plan),
+    ).contiguous()
+
+
+def _deposit_kernel(normalized, rows, histogram_shape, orders_flat, *plan) -> torch.Tensor:
+    """``cic_deposit_tiled`` on CUDA tensors: ``deposit_tiled_kernel`` on the
+    plan's sorted positions, sized by :func:`tiled_deposit_geometry` (atomic
+    adds, so the last bits change from run to run). Counts its launch in
+    ``deposit_multi_tiled_3d.launches``."""
+    plan = _given_plan(histogram_shape, *plan)
     batch, _, num_components, num_particles = rows.shape
     out = torch.zeros(
         (batch, num_components, *histogram_shape), dtype=rows.dtype, device=rows.device
     )
     if batch * num_particles * num_components == 0:
         return out
-    normalized = normalized.contiguous()
     rows = rows.contiguous()
-    plan = _check_plan(plan, normalized, histogram_shape)
     _, ny, nt = histogram_shape
     geometry = tiled_deposit_geometry(
         batch, num_components, num_particles, (plan.rows_per_tile + 1) * ny * nt,
@@ -423,10 +459,109 @@ def deposit_multi_tiled_3d(
         plan.offsets.data_ptr(), out.data_ptr(), batch, num_particles, num_components,
         *histogram_shape, plan.rows_per_tile, plan.num_tiles, geometry.per_run,
         geometry.group, geometry.min_window_run,
-        *cic_common.orders_argument(orders),
+        *cic_common.orders_argument(cic_common.orders_from_flat(orders_flat)),
     )
     deposit_multi_tiled_3d.launches += 1
     return out
+
+
+def _deposit_fake(normalized, rows, histogram_shape, orders_flat, *plan) -> torch.Tensor:
+    return rows.new_empty((rows.shape[0], rows.shape[2], *histogram_shape))
+
+
+_PLAN_ARGUMENTS = (
+    "Tensor sorted_tile, Tensor perm, Tensor offsets, Tensor sorted_positions, Tensor rank"
+)
+
+#: ``cheetah_tpu_torch::cic_deposit_tiled``: the x-tiled deposit, with the
+#: contract of ``cic_deposit_multi``, on the tensors of the positions'
+#: :class:`TilePlan`.
+DEPOSIT_TILED = cic_common.define_operator(
+    "cic_deposit_tiled",
+    "(Tensor normalized, Tensor rows, int[] histogram_shape, int[] orders_flat, "
+    f"{_PLAN_ARGUMENTS}) -> Tensor",
+    _deposit_plain, _deposit_kernel, _deposit_fake,
+)
+
+
+def _gather_plain(grids, normalized, orders_flat, *plan) -> torch.Tensor:
+    """``cic_gather_tiled`` on CPU tensors:
+    :func:`gather_multi_tiled_3d_reference` on the plan given, its outputs
+    stacked."""
+    return torch.stack(gather_multi_tiled_3d_reference(
+        grids, normalized, cic_common.orders_from_flat(orders_flat),
+        plan=_given_plan(grids.shape[2:], *plan),
+    ))
+
+
+def _gather_kernel(grids, normalized, orders_flat, *plan) -> torch.Tensor:
+    """``cic_gather_tiled`` on CUDA tensors: ``gather_tiled_staged_kernel``
+    (where a tile's window fits shared memory: the value and raised order
+    sets) or ``gather_tiled_kernel`` on the plan's sorted positions, which
+    writes the outputs in sorted order, and ``unsort_kernel``, which moves
+    them to the original indices through the plan's ``rank``. Counts its
+    launch in ``gather_multi_tiled_3d.launches``."""
+    orders = cic_common.orders_from_flat(orders_flat)
+    histogram_shape = tuple(grids.shape[2:])
+    plan = _given_plan(histogram_shape, *plan)
+    batch, num_components = grids.shape[:2]
+    num_particles = normalized.shape[1]
+    out = torch.empty(
+        (len(orders), batch, num_components, num_particles),
+        dtype=grids.dtype, device=grids.device,
+    )
+    if batch * num_particles * num_components == 0:
+        return out
+    grids = grids.contiguous()
+    sorted_out = torch.empty_like(out)
+    LIBRARY.launch(
+        "cic_gather_tiled", grids.dtype, grids.device,
+        grids.data_ptr(), plan.sorted_positions.data_ptr(), plan.rank.data_ptr(),
+        plan.offsets.data_ptr(), sorted_out.data_ptr(), out.data_ptr(), batch, num_particles,
+        num_components, *histogram_shape, plan.rows_per_tile, plan.num_tiles, GATHER_PER_RUN,
+        *cic_common.orders_argument(orders),
+    )
+    gather_multi_tiled_3d.launches += 1
+    return out
+
+
+def _gather_fake(grids, normalized, orders_flat, *plan) -> torch.Tensor:
+    return grids.new_empty((len(orders_flat) // 3, *grids.shape[:2], normalized.shape[1]))
+
+
+#: ``cheetah_tpu_torch::cic_gather_tiled``: the x-tiled gather, with the
+#: contract of ``cic_gather_multi``, on the tensors of the positions'
+#: :class:`TilePlan`.
+GATHER_TILED = cic_common.define_operator(
+    "cic_gather_tiled",
+    f"(Tensor grids, Tensor normalized, int[] orders_flat, {_PLAN_ARGUMENTS}) -> Tensor",
+    _gather_plain, _gather_kernel, _gather_fake,
+)
+
+
+def deposit_multi_tiled_3d(
+    normalized: torch.Tensor,
+    rows: torch.Tensor,
+    histogram_shape: tuple[int, int, int],
+    orders: cic_common.Orders,
+    plan: TilePlan | None = None,
+) -> torch.Tensor:
+    """x-tiled multi-order CIC deposit, with the contract of
+    :func:`cheetah_tpu_torch.ops.cic_kernels.deposit_multi_3d`: the
+    operator ``cic_deposit_tiled`` (``deposit_tiled_kernel`` on CUDA
+    tensors, :func:`deposit_multi_tiled_3d_reference` on CPU tensors) on
+    ``plan``, made by :func:`plan_tiles` from ``normalized`` on this grid,
+    or made here.
+    """
+    orders, histogram_shape = cic_common.check_deposit_args(
+        normalized, rows, histogram_shape, orders
+    )
+    if not tiled_bounds_ok(histogram_shape):
+        raise ValueError(f"The grid is past the tiled kernels' bounds: {histogram_shape}")
+    plan = _check_plan(plan, normalized, histogram_shape)
+    return DEPOSIT_TILED(
+        normalized, rows, histogram_shape, cic_common.orders_flat(orders), *plan[2:]
+    )
 
 
 deposit_multi_tiled_3d.launches = 0
@@ -439,44 +574,19 @@ def gather_multi_tiled_3d(
     plan: TilePlan | None = None,
 ) -> tuple[torch.Tensor, ...]:
     """x-tiled multi-order trilinear gather, with the contract of
-    :func:`cheetah_tpu_torch.ops.cic_kernels.gather_multi_3d`.
-
-    CUDA tensors launch ``gather_tiled_staged_kernel`` (where a tile's
-    window fits shared memory: the value and raised order sets) or
-    ``gather_tiled_kernel`` on the plan's sorted positions,
-    which writes the outputs in sorted order, and ``unsort_kernel``, which
-    moves them to the original indices through the plan's ``rank``; CPU
-    tensors run :func:`gather_multi_tiled_3d_reference`.
-    ``plan``, made by :func:`plan_tiles` from ``normalized`` on this grid,
-    saves making it here.
+    :func:`cheetah_tpu_torch.ops.cic_kernels.gather_multi_3d`: the operator
+    ``cic_gather_tiled`` (``gather_tiled_staged_kernel`` or
+    ``gather_tiled_kernel``, then ``unsort_kernel``, on CUDA tensors;
+    :func:`gather_multi_tiled_3d_reference` on CPU tensors) on ``plan``,
+    made by :func:`plan_tiles` from ``normalized`` on this grid, or made
+    here.
     """
     orders = cic_common.check_gather_args(grids, normalized, orders)
     histogram_shape = tuple(grids.shape[2:])
     if not tiled_bounds_ok(histogram_shape):
         raise ValueError(f"The grid is past the tiled kernels' bounds: {histogram_shape}")
-    if grids.device.type == "cpu":
-        return gather_multi_tiled_3d_reference(grids, normalized, orders, plan=plan)
-
-    batch, num_components = grids.shape[:2]
-    num_particles = normalized.shape[1]
-    out = torch.empty(
-        (len(orders), batch, num_components, num_particles),
-        dtype=grids.dtype, device=grids.device,
-    )
-    if batch * num_particles * num_components == 0:
-        return out.unbind(0)
-    grids = grids.contiguous()
     plan = _check_plan(plan, normalized, histogram_shape)
-    sorted_out = torch.empty_like(out)
-    LIBRARY.launch(
-        "cic_gather_tiled", grids.dtype, grids.device,
-        grids.data_ptr(), plan.sorted_positions.data_ptr(), plan.rank.data_ptr(),
-        plan.offsets.data_ptr(), sorted_out.data_ptr(), out.data_ptr(), batch, num_particles,
-        num_components, *histogram_shape, plan.rows_per_tile, plan.num_tiles, GATHER_PER_RUN,
-        *cic_common.orders_argument(orders),
-    )
-    gather_multi_tiled_3d.launches += 1
-    return out.unbind(0)
+    return GATHER_TILED(grids, normalized, cic_common.orders_flat(orders), *plan[2:]).unbind(0)
 
 
 gather_multi_tiled_3d.launches = 0

@@ -29,6 +29,23 @@ FLOPs and bytes. The lattice is traced as it stands: settings that the
 port decides on the host when they are assigned (a cavity's voltage, the
 tracking methods, which elements are active) are fixed in the program, as
 the JAX package's static fields are fixed in its artifact.
+
+A space-charge segment exports too, its particle axis symbolic: the
+kick's cloud-in-cell deposit and gather (and, on a grid of the x-tiled
+pair, their tile plans) are the operators ``cheetah_tpu_torch::cic_*``
+(:mod:`cheetah_tpu_torch.ops.cic_kernels`), which the graph holds as
+operators, as the JAX package's artifact holds its CIC primitives. Nothing
+about them is decided at export: the dispatcher picks an implementation by
+the device of the tensors each call gets, so the program runs the plain
+versions on CPU tensors and the hand-written kernels on CUDA tensors (a
+program exported with CPU tensors moves to the card with
+``torch.export.passes.move_to_device_pass``). A process that loads such a
+program must ``import cheetah_tpu_torch`` before ``torch.export.load``, as
+that import registers the operators::
+
+    import cheetah_tpu_torch  # registers the cheetah_tpu_torch::cic_* operators
+
+    program = torch.export.load("space_charge.pt2").module()
 """
 
 from __future__ import annotations

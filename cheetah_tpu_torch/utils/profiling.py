@@ -180,7 +180,13 @@ def compiled_stats(fn: Callable, *args) -> dict[str, float]:
     package: ``flops`` from ``torch.utils.flop_counter`` (matrix products,
     convolutions and attention: elementwise operators count no FLOPs
     there) and ``bytes_accessed`` from a tally of every operator's operand
-    and result sizes (:class:`_ByteTally`)."""
+    and result sizes (:class:`_ByteTally`).
+
+    The cloud-in-cell operators (``cheetah_tpu_torch::cic_*``) count as
+    one operation each: their operands and results are tallied, but no
+    FLOP inside them, on the card (the hand-written kernels) or on the CPU
+    (their plain versions), as XLA's cost analysis counts none inside a
+    Pallas custom call."""
     from torch.utils.flop_counter import FlopCounterMode
 
     tally = _ByteTally()

@@ -67,6 +67,14 @@ through the 32^3 space-charge segment; the env step exported with
 and 100k particles; the plots' data of the imported linac and of the 1M
 beam (drawn under Agg where matplotlib is installed); and
 ``utils.profiling`` against this script's timer.
+Last the eleventh slice, the kernels as ``torch.library`` operators: the
+space-charge segment exported with ``torch.export`` from the 1M beam (the
+particle axis symbolic) on 32^3 and 128^3, saved, loaded and called at 1M
+and 100k particles, its graph holding the operators and none of the plain
+versions, its launches those of eager tracking and its kicks those of
+eager tracking within the kick tolerance, with export, loaded, eager and
+graph times; the segment exported on the CPU and moved to the card; and
+the host's time per operator call against its CUDA implementation's.
 Every phase prints one JSON line. The last line is
 ``{"ok": true, "device": {...}}``; any failed check raises, so the script
 exits non-zero and prints no such line. It imports neither JAX nor the JAX
@@ -944,13 +952,20 @@ def _sc_segment(ctt, dtype, device, grid_shape=(32, 32, 32)):
 
 
 def _check_kicks(label, beam_in, out_card, out_cpu) -> dict:
-    before = beam_in.to("cpu", torch.float64).particles
+    return _check_kick_particles(label, beam_in.to("cpu", torch.float64).particles,
+                                 out_card.particles, out_cpu.particles)
+
+
+def _check_kick_particles(label, before, actual, expected) -> dict:
+    """The RMS of the difference of the kicks (px, py, p: ``actual`` and
+    ``expected`` less ``before``, float64 on the CPU) over the RMS of the
+    expected kick, each within ``KICK_RMS_TOLERANCE``."""
     errors = {}
     for index, name in ((1, "px"), (3, "py"), (5, "p")):
-        kick_cpu = out_cpu.particles[..., index] - before[..., index]
-        kick_card = out_card.particles[..., index].cpu().double() - before[..., index]
-        rms = torch.sqrt(torch.mean(kick_cpu**2)).item()
-        error = torch.sqrt(torch.mean((kick_card - kick_cpu) ** 2)).item() / rms
+        kick_expected = expected[..., index].cpu().double() - before[..., index]
+        kick_actual = actual[..., index].cpu().double() - before[..., index]
+        rms = torch.sqrt(torch.mean(kick_expected**2)).item()
+        error = torch.sqrt(torch.mean((kick_actual - kick_expected) ** 2)).item() / rms
         errors[name] = error
         check(error <= KICK_RMS_TOLERANCE[name], f"{label}: {name} kick off by {error} RMS")
     return errors
@@ -3195,6 +3210,207 @@ def phase_deploy(ctt, wrappers) -> None:
     check(histogram_share == 0.0, f"plotted histograms off by {histogram_share}")
 
 
+# ---------------------------------------------------------------------------
+# The eleventh slice: the kernels as operators, a space-charge path exported
+# ---------------------------------------------------------------------------
+
+#: The operators each exported space-charge segment (two kicks) holds, by
+#: grid: the untiled pair on 32^3, the x-tiled pair and a plan for each of
+#: its autograd nodes on 128^3.
+DEPLOY_SC_OPERATORS = {
+    32: {"cheetah_tpu_torch.cic_deposit_multi.default": 2,
+         "cheetah_tpu_torch.cic_gather_multi.default": 2},
+    128: {"cheetah_tpu_torch.cic_tile_plan.default": 4,
+          "cheetah_tpu_torch.cic_deposit_tiled.default": 2,
+          "cheetah_tpu_torch.cic_gather_tiled.default": 2},
+}
+#: What the plain versions would leave in a graph: the untiled pair's
+#: index_add_ and gather, the tiled gather's scatter_ and the plan's sort
+#: and searchsorted. (The kick's own out-of-place index_add on the momentum
+#: columns is aten.index_add, not index_add_.)
+PLAIN_VERSION_TARGETS = ("aten.index_add_.", "aten.gather.", "aten.scatter_.", "aten.sort.",
+                         "aten.searchsorted.")
+DEPLOY_SC_PARTICLES = (NUM_PARTICLES, 100_000)
+
+
+def _host_us(fn, calls: int = 200) -> float:
+    """The host's time per call of ``fn``, in microseconds, over ``calls``
+    back-to-back calls: what enqueueing a launch costs, the card working
+    behind."""
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
+
+
+def _boundary_us(cic_kernels, cic_tiled, rounds: int = 5) -> dict:
+    """The host's time per call of each operator, through the dispatcher
+    and as its CUDA implementation called directly (medians of ``rounds``
+    alternating rounds), on 4096 particles: the cost of the operator
+    boundary."""
+    from cheetah_tpu_torch.ops import cic_common
+
+    generator = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    untiled, tiled = (32, 32, 32), (128, 128, 128)
+    value = list(cic_common.orders_flat(cic_kernels.VALUE))
+    normalized = {
+        shape: _uniform_positions(generator, 1, shape, torch.float32)[:, :4096].contiguous()
+        for shape in (untiled, tiled)
+    }
+    rows = torch.rand(1, 1, 1, 4096, generator=generator, device="cuda")
+    grids = {shape: torch.rand(1, 3, *shape, generator=generator, device="cuda")
+             for shape in (untiled, tiled)}
+    plan = tuple(cic_tiled.plan_tiles(normalized[tiled], tiled)[2:])
+    cases = {
+        "cic_deposit_multi": (cic_kernels.DEPOSIT_MULTI, cic_kernels._deposit_kernel,
+                              (normalized[untiled], rows, list(untiled), value)),
+        "cic_gather_multi": (cic_kernels.GATHER_MULTI, cic_kernels._gather_kernel,
+                             (grids[untiled], normalized[untiled], value)),
+        "cic_tile_plan": (cic_tiled.TILE_PLAN, cic_tiled._plan_kernel,
+                          (normalized[tiled], list(tiled))),
+        "cic_deposit_tiled": (cic_tiled.DEPOSIT_TILED, cic_tiled._deposit_kernel,
+                              (normalized[tiled], rows, list(tiled), value, *plan)),
+        "cic_gather_tiled": (cic_tiled.GATHER_TILED, cic_tiled._gather_kernel,
+                             (grids[tiled], normalized[tiled], value, *plan)),
+    }
+    results = {}
+    for name, (operator, implementation, arguments) in cases.items():
+        through, direct = [], []
+        for _ in range(rounds):
+            through.append(_host_us(lambda: operator(*arguments)))
+            direct.append(_host_us(lambda: implementation(*arguments)))
+        results[name] = {"operator_us": statistics.median(through),
+                         "implementation_us": statistics.median(direct)}
+        results[name]["boundary_us"] = (results[name]["operator_us"]
+                                        - results[name]["implementation_us"])
+    return results
+
+
+def phase_deploy_space_charge(ctt, wrappers, cic_kernels, cic_tiled) -> dict:
+    """The space-charge segment (two kicks) exported by ``torch.export``
+    from a 1M-particle float32 beam, the particle axis symbolic, on the
+    32^3 grid (the untiled pair) and on 128^3 (the x-tiled pair and its
+    plans); saved, loaded, and called at 1M and 100k particles: its kicks
+    against eager ``segment.track`` of the same beam within
+    ``KICK_RMS_TOLERANCE``, its launches equal to eager tracking's, no plan
+    by ``torch.sort``, its graph holding the ``cheetah_tpu_torch``
+    operators and none of the plain versions' operators; the export's
+    seconds, the loaded program's CUDA-event and graph ms against eager
+    tracking's. Then the host's time per call of each operator against its
+    CUDA implementation called directly. Returns each program's launches
+    at 1M particles, by grid."""
+    import collections
+    import tempfile
+
+    from cheetah_tpu_torch.utils import aot
+
+    beam = _bench_beam(ctt, NUM_PARTICLES, "cuda",
+                       torch.Generator(device="cuda").manual_seed(SEED))
+    programs, launches_by_grid = {}, {}
+    for grid in ((32, 32, 32), (128, 128, 128)):
+        label = f"deploy_sc_{grid[0]}"
+        segment = _sc_segment(ctt, torch.float32, "cuda", grid)
+        step = aot.TrackReadout(segment, "particles", beam.species)
+        start = time.perf_counter()
+        exported = torch.export.export(step, aot.beam_arguments(beam),
+                                       dynamic_shapes=aot.symbolic_particle_beam(beam))
+        export_s = time.perf_counter() - start
+        targets = collections.Counter(
+            str(node.target) for node in exported.graph.nodes if node.op == "call_function"
+        )
+        operators = {name: count for name, count in targets.items()
+                     if name.startswith("cheetah_tpu_torch.")}
+        plain = {name: count for name, count in targets.items()
+                 if name.startswith(PLAIN_VERSION_TARGETS)}
+        check(operators == DEPLOY_SC_OPERATORS[grid[0]],
+              f"{label}: the graph holds the operators {operators}")
+        check(not plain, f"{label}: the graph holds the plain versions' {plain}")
+        with tempfile.TemporaryDirectory() as directory:
+            torch.export.save(exported, f"{directory}/{label}.pt2")
+            program = torch.export.load(f"{directory}/{label}.pt2").module()
+
+        kind = "tiled_3d" if cic_kernels.uses_tiled(grid) else "3d"
+        expected = {name: 0 for name in wrappers}
+        expected.update({f"deposit_multi_{kind}": 2, f"gather_multi_{kind}": 2})
+        if kind == "tiled_3d":
+            expected["plan_tiles"] = 4
+        runs = {}
+        for num_particles in DEPLOY_SC_PARTICLES:
+            other = _bench_beam(ctt, num_particles, "cuda",
+                                torch.Generator(device="cuda").manual_seed(SEED + 1))
+            arguments = aot.beam_arguments(other)
+            sorts = cic_tiled.tile_plan.calls
+            _reset_launches(wrappers)
+            got = program(*arguments)
+            loaded = _launches(wrappers)
+            _reset_launches(wrappers)
+            want = segment.track(other).particles
+            eager = _launches(wrappers)
+            check(cic_tiled.tile_plan.calls == sorts, f"{label}: a plan went through torch.sort")
+            check(loaded == eager == expected,
+                  f"{label} at {num_particles}: loaded launched {loaded}, eager {eager}")
+            check(tuple(got.shape) == (num_particles, 7) and bool(torch.isfinite(got).all()),
+                  f"{label} at {num_particles}: particles {tuple(got.shape)}, not all finite")
+            errors = _check_kick_particles(
+                f"{label} at {num_particles}", other.particles.cpu().double(), got, want
+            )
+            # Loaded, eager, loaded again: the host's load drifts during a run.
+            loaded_ms = time_ms(lambda: program(*arguments), runs=10)
+            eager_ms = time_ms(lambda: segment.track(other), runs=10)
+            runs[num_particles] = {
+                "kick_rms_rel_err_vs_eager": errors, "launches": loaded,
+                "loaded_ms": loaded_ms, "eager_track_ms": eager_ms,
+                "loaded_again_ms": time_ms(lambda: program(*arguments), runs=10),
+                "loaded_graph_ms": graph_ms(lambda: program(*arguments), runs=10),
+            }
+            if num_particles == NUM_PARTICLES:
+                launches_by_grid[grid[0]] = loaded
+                for how, fn, ms in (("loaded", lambda: program(*arguments), loaded_ms),
+                                    ("eager", lambda: segment.track(other), eager_ms)):
+                    profile = profile_path(f"{label}_{how}", fn, ms)
+                    runs[num_particles][f"{how}_kernel_launches"] = profile["kernel_launches"]
+                    runs[num_particles][f"{how}_idle_share"] = profile["idle_share"]
+        programs[label] = {"grid": list(grid), "export_s": export_s, "operators": operators,
+                           "runs": runs}
+    moved = _moved_program(ctt, wrappers, beam)
+    boundary = _boundary_us(cic_kernels, cic_tiled)
+    emit("deploy_space_charge", symbolic_axis="n", dtype="float32", kicks=2,
+         exported_from=NUM_PARTICLES, programs=programs, exported_on_cpu=moved,
+         operator_boundary=boundary)
+    return launches_by_grid
+
+
+def _moved_program(ctt, wrappers, beam) -> dict:
+    """Nothing about the operators is decided at export: the 32^3 segment
+    exported from a CPU beam of 10k particles (the particle axis symbolic)
+    and moved to the card by ``move_to_device_pass`` launches the untiled
+    pair on the 1M beam, and its kicks match eager tracking's."""
+    from torch.export.passes import move_to_device_pass
+
+    from cheetah_tpu_torch.utils import aot
+
+    cpu_beam = _bench_beam(ctt, 10_000, "cpu", torch.Generator().manual_seed(SEED))
+    cpu_segment = _sc_segment(ctt, torch.float32, "cpu")
+    exported = torch.export.export(
+        aot.TrackReadout(cpu_segment, "particles", cpu_beam.species),
+        aot.beam_arguments(cpu_beam), dynamic_shapes=aot.symbolic_particle_beam(cpu_beam),
+    )
+    program = move_to_device_pass(exported, "cuda").module()
+    _reset_launches(wrappers)
+    got = program(*aot.beam_arguments(beam))
+    launches = _launches(wrappers)
+    expected = {name: 0 for name in wrappers} | {"deposit_multi_3d": 2, "gather_multi_3d": 2}
+    check(launches == expected, f"the moved program launched {launches}, not {expected}")
+    want = _sc_segment(ctt, torch.float32, "cuda").track(beam).particles
+    errors = _check_kick_particles("the moved program", beam.particles.cpu().double(), got,
+                                   want)
+    return {"grid": [32, 32, 32], "launches": launches, "kick_rms_rel_err_vs_eager": errors}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; none is available.", file=sys.stderr)
@@ -3258,16 +3474,20 @@ def main() -> int:
     phase_imported_ares(ctt, wrappers, smi)
     phase_beam_io(ctt, wrappers)
     phase_deploy(ctt, wrappers)
+    # The eleventh slice: the space-charge segment exported and loaded.
+    deploy_launches = phase_deploy_space_charge(ctt, wrappers, cic_kernels, cic_tiled)
 
     def entry(name, source, replaces, measured, **extra):
         by_path = {"space_charge_segment": segment_launches[name],
                    "sc_grad_32": grad_launches[32][name], "sc_grad_128": grad_launches[128][name],
                    "sc_line_32": line_launches[32][name], "sc_line_128": line_launches[128][name],
                    "sc_sharded_32": sharded_launches[32][name],
-                   "sc_sharded_128": sharded_launches[128][name]}
+                   "sc_sharded_128": sharded_launches[128][name],
+                   "deploy_sc_32": deploy_launches[32][name],
+                   "deploy_sc_128": deploy_launches[128][name]}
         launches = sum(by_path[path] for path in
                        ("sc_grad_32", "sc_grad_128", "sc_line_32", "sc_line_128",
-                        "sc_sharded_32", "sc_sharded_128"))
+                        "sc_sharded_32", "sc_sharded_128", "deploy_sc_32", "deploy_sc_128"))
         check(launches > 0, f"{name} was not launched on its path")
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -8,9 +8,10 @@ Each round runs OLD, NEW, NEW, OLD, each in a fresh process that imports
 ``cheetah_tpu_torch`` from that root (and builds its kernels there at first
 use). A process times the ARES EA env step (4096 instances x 10k particles,
 float32), the same 4096 instances with a ``ParameterBeam`` (where the
-checkout has one) and the space-charge segment of
-``scripts/bench_all.py:415-424`` (1M particles, 32^3, float32) with CUDA
-events, one call per event window,
+checkout has one), the space-charge segment of
+``scripts/bench_all.py:415-424`` (1M particles, 32^3, float32) and its
+gradient by a drift length on 32^3 and 128^3 (chip_smoke's ``sc_grad_*``)
+with CUDA events, one call per event window,
 times the host's span to enqueue one call on an idle card, and profiles
 five calls of each with ``torch.profiler`` for the device's busy time and
 the number of kernels a call launches, and ten with ``cProfile`` for the
@@ -143,6 +144,8 @@ def worker(root: str) -> None:
         "env_step": lambda: env.track(env_beam).sigma_x,
         "space_charge_segment": lambda: segment.track(sc_beam),
     }
+    for grid in ((32, 32, 32), (128, 128, 128)):
+        paths[f"sc_grad_{grid[0]}"] = _sc_value_and_grad(torch, ctt, grid, sc_beam, kw)
     if hasattr(ctt, "ParameterBeam"):
         moments = ctt.ParameterBeam.from_twiss(
             beta_x=5.0, emittance_x=2e-9, beta_y=3.0, emittance_y=2e-9, energy=1.54e8, **kw
@@ -161,6 +164,24 @@ def worker(root: str) -> None:
         torch, paths["space_charge_segment"]
     )
     print(json.dumps(result), flush=True)
+
+
+def _sc_value_and_grad(torch, ctt, grid, sc_beam, kw):
+    """sum(px^2) after the space-charge segment on ``grid`` and its
+    derivative by the first drift's length, as chip_smoke's ``sc_grad_*``."""
+    segment = ctt.Segment(
+        [ctt.Drift(0.1, **kw), ctt.SpaceChargeKick(0.2, grid_shape=grid, **kw),
+         ctt.Drift(0.1, **kw), ctt.SpaceChargeKick(0.2, grid_shape=grid, **kw),
+         ctt.Drift(0.1, **kw)]
+    )
+    length = torch.tensor(0.1, device="cuda", requires_grad=True)
+    segment.elements[0].length = length
+
+    def value_and_grad():
+        value = torch.sum(torch.square(segment.track(sc_beam).px))
+        return value, torch.autograd.grad(value, length)
+
+    return value_and_grad
 
 
 def _functions_vs_bare_wrappers(torch, fn, alternations: int = 6) -> dict | None:

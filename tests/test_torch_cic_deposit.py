@@ -233,8 +233,8 @@ def test_deposit_threads_match_the_c_source():
 @pytest.mark.parametrize("case", ["32^3_f32", "32^3_f32_c3", "64^3_f64", "128^3_f32_c3",
                                   "8x256x512_f64"])
 def test_card_paths_pass_the_geometry(monkeypatch, case):
-    """The deposits' card paths on the ``meta`` device, their launches
-    intercepted: each passes the geometry the wrapper computed, allocates
+    """The deposits' card paths (their operators' CUDA implementations) on
+    the ``meta`` device, their launches intercepted: each passes the geometry the wrapper computed, allocates
     the untiled scratch of (B, C, copies, cells) values when it has several
     copies, and zeroes its output only where global atomics add into it."""
     shapes = {"32^3": (32, 32, 32), "64^3": (64, 64, 64), "128^3": (128, 128, 128),
@@ -258,7 +258,14 @@ def test_card_paths_pass_the_geometry(monkeypatch, case):
     num_particles = 1_000_000
     normalized = torch.empty(1, num_particles, 3, dtype=dtype, device="meta")
     rows = torch.empty(1, 1, components, num_particles, dtype=dtype, device="meta")
-    out = cic_kernels.deposit_multi_3d(normalized, rows, shape, cic_kernels.VALUE)
+    # The CUDA implementation of the operator that deposit_multi_3d
+    # dispatches to (on the meta device the dispatcher would run the fake).
+    flat = cic_common.orders_flat(cic_kernels.VALUE)
+    if cic_kernels.uses_tiled(shape):
+        plan = cic_tiled._plan_kernel(normalized, list(shape))
+        out = cic_tiled._deposit_kernel(normalized, rows, list(shape), flat, *plan)
+    else:
+        out = cic_kernels._deposit_kernel(normalized, rows, list(shape), flat)
     assert out.shape == (1, components, *shape) and out.dtype == dtype
     itemsize = torch.empty((), dtype=dtype).element_size()
     name, args = calls[-1]

@@ -10,8 +10,9 @@ reuse, on the CPU.
   on a tiled grid makes 4 plans (one per kick's deposit and gather, in
   forward) and not 10, with the same gradient as without reuse.
 - The C entry points' signatures in ``csrc`` against the ctypes argument
-  lists the wrappers declare, and each wrapper's card path, run on the
-  ``meta`` device with its launch intercepted, against those lists.
+  lists the wrappers declare, and each wrapper's card path (its operator's
+  CUDA implementation), run on the ``meta`` device with its launch
+  intercepted, against those lists.
 
 The card's counting-sort plan is held against ``tile_plan`` exactly by
 ``chip_smoke.py``; a CUDA kernel has no CPU mode.
@@ -149,13 +150,20 @@ def test_ctypes_signatures_match_the_c_entry_points(library):
         assert declared[name] == [_CTYPES[t.__name__] for t in argtypes], name
 
 
+# Each operator's CUDA implementation, called as the dispatcher calls it (a
+# tiled one on the plan that cic_tile_plan's implementation makes first): on
+# the meta device the dispatcher would run the fake implementation instead.
+_RAISED, _ALL = cic_common.orders_flat(RAISED), cic_common.orders_flat(ALL_ORDERS)
+_TILED = list(SHAPES[0])
 _CARD_CALLS = {
-    "gather_multi_3d": lambda n, g, r: cic_kernels._gather_untiled(g, n, RAISED),
-    "deposit_multi_3d": lambda n, g, r: cic_kernels._deposit_untiled(n, r, (8, 8, 8), RAISED),
-    "plan_tiles": lambda n, g, r: cic_tiled.plan_tiles(n, SHAPES[0]),
-    "gather_multi_tiled_3d": lambda n, g, r: cic_tiled.gather_multi_tiled_3d(g, n, ALL_ORDERS),
-    "deposit_multi_tiled_3d": lambda n, g, r: cic_tiled.deposit_multi_tiled_3d(
-        n, r, SHAPES[0], RAISED
+    "gather_multi_3d": lambda n, g, r: cic_kernels._gather_kernel(g, n, _RAISED),
+    "deposit_multi_3d": lambda n, g, r: cic_kernels._deposit_kernel(n, r, [8, 8, 8], _RAISED),
+    "plan_tiles": lambda n, g, r: cic_tiled._plan_kernel(n, _TILED),
+    "gather_multi_tiled_3d": lambda n, g, r: cic_tiled._gather_kernel(
+        g, n, _ALL, *cic_tiled._plan_kernel(n, _TILED)
+    ),
+    "deposit_multi_tiled_3d": lambda n, g, r: cic_tiled._deposit_kernel(
+        n, r, _TILED, _RAISED, *cic_tiled._plan_kernel(n, _TILED)
     ),
 }
 
@@ -163,10 +171,11 @@ _CARD_CALLS = {
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize("wrapper", list(_CARD_CALLS))
 def test_card_paths_pass_their_signatures(monkeypatch, wrapper, dtype):
-    """Each wrapper's card path, run on the ``meta`` device with its launch
-    intercepted: the arguments it passes match the ctypes argument list in
-    number and kind, it counts its launch, and the plan's count scratch
-    holds T * ceil(N / 128) ints per instance (cic_tiled.cu's worst case)."""
+    """Each wrapper's card path (its operator's CUDA implementation), run on
+    the ``meta`` device with its launch intercepted: the arguments it passes
+    match the ctypes argument list in number and kind, it counts its
+    launch, and the plan's count scratch holds T * ceil(N / 128) ints per
+    instance (cic_tiled.cu's worst case)."""
     calls = []
 
     def launch(library, name, launch_dtype, device, *args):

@@ -1,8 +1,11 @@
 """The port's multi-device layer across real process boundaries, on the CPU.
 
-Two and four ranks, each a subprocess running ``torch_parallel_worker.py``,
-join a gloo process group through a file store in ``tmp_path`` (no TCP port
-to race for between test workers) and run explicit SPMD on their own blocks:
+Four ranks, each a subprocess running ``torch_parallel_worker.py``, join a
+gloo process group through a file store in ``tmp_path`` (no TCP port to
+race for between test workers) and run explicit SPMD on their own blocks;
+then the first two join a group of two and do the same. The module makes
+this one launch of four processes, so that it loads the machine with at
+most four ranks at a time and starts each only once:
 
 - ``flat`` (2 ranks): instance-axis tracking, linear and second order; the
   particle-sharded space-charge kick (4000 particles, 8^3) with its loss and
@@ -176,8 +179,12 @@ def expected(inputs, beams):
     return results
 
 
-def _launch(job: str, world_size: int, directory: Path, inputs: dict,
-            local_world_size: int | None = None) -> list[dict]:
+def _launch(jobs: dict, directory: Path, inputs: dict,
+            local_world_size: int | None = None) -> dict:
+    """One launch of ``max(jobs.values())`` rank processes that run the jobs
+    (name: world size) in turn; each job's results by rank."""
+    world_size = max(jobs.values())
+    job = ",".join(f"{name}:{size}" for name, size in jobs.items())
     np.savez(directory / "inputs.npz", **inputs)
     env = os.environ.copy()
     env["PYTHONPATH"] = os.pathsep.join(p for p in (str(TESTS.parent), env.get("PYTHONPATH")) if p)
@@ -205,18 +212,30 @@ def _launch(job: str, world_size: int, directory: Path, inputs: dict,
         pytest.fail(f"{job}: ranks timed out after {TIMEOUT_S} s:\n" + "\n".join(outputs))
     for rank, (proc, out) in enumerate(zip(procs, outputs)):
         assert proc.returncode == 0, f"{job} rank {rank} failed:\n{out}"
-    return [dict(np.load(directory / f"rank{rank}.npz")) for rank in range(world_size)]
+    return {
+        name: [dict(np.load(directory / f"{name}_rank{rank}.npz")) for rank in range(size)]
+        for name, size in jobs.items()
+    }
 
 
 @pytest.fixture(scope="module")
-def flat(inputs, tmp_path_factory):
-    directory = tmp_path_factory.mktemp("flat")
-    return directory, _launch("flat", 2, directory, inputs)
+def launched(inputs, tmp_path_factory):
+    """The one multi-rank launch of this module: four processes run the
+    hybrid job, then the first two the flat job on a group of their own
+    (two nodes of two ranks for the hybrid mesh, ``LOCAL_WORLD_SIZE=2``)."""
+    directory = tmp_path_factory.mktemp("ranks")
+    return directory, _launch({"hybrid": 4, "flat": 2}, directory, inputs, local_world_size=2)
 
 
 @pytest.fixture(scope="module")
-def hybrid(inputs, tmp_path_factory):
-    return _launch("hybrid", 4, tmp_path_factory.mktemp("hybrid"), inputs, local_world_size=2)
+def flat(launched):
+    directory, jobs = launched
+    return directory, jobs["flat"]
+
+
+@pytest.fixture(scope="module")
+def hybrid(launched):
+    return launched[1]["hybrid"]
 
 
 def _ranks(request, name):

@@ -1,11 +1,12 @@
 """One rank of the port's multi-process CPU tests (``test_torch_distributed.py``).
 
-Started as ``python torch_parallel_worker.py <job> <rank> <world_size>
-<directory>``: joins a gloo process group through the file store
-``<directory>/store``, reads the inputs that the test wrote with numpy into
-``<directory>/inputs.npz`` (the JAX package's arrays), runs the job's
-checks on its own block and writes what it computed to
-``<directory>/rank<rank>.npz``; the test holds those against the JAX
+Started as ``python torch_parallel_worker.py <job>:<world size>[,...]
+<rank> <processes> <directory>``: reads the inputs that the test wrote with
+numpy into ``<directory>/inputs.npz`` (the JAX package's arrays) and, for
+each job in turn, joins a gloo process group of the job's world size
+through the file store ``<directory>/store_<job>``, runs the job's checks
+on its own block and writes what it computed to
+``<directory>/<job>_rank<rank>.npz``; the test holds those against the JAX
 package. It imports torch and the port only, and builds every tensor in
 float64 explicitly.
 
@@ -314,14 +315,25 @@ def shard_beam_rows(tensor: torch.Tensor, mesh, axes) -> torch.Tensor:
     return tensor.chunk(size)[index]
 
 
+JOBS = {"flat": job_flat, "hybrid": job_hybrid}
+
+
 def main() -> None:
-    job, rank, world_size, directory = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
-    initialize(f"file://{os.path.join(directory, 'store')}", world_size, rank)
+    """Run the jobs of ``<job>:<world size>[,...]`` in turn, each on a
+    process group of its own over the first ``<world size>`` ranks; a rank
+    past a job's world size stops there. One launch of processes serves
+    every job, so the test starts each process, and imports torch, once."""
+    jobs, rank, directory = sys.argv[1], int(sys.argv[2]), sys.argv[4]
     inputs = dict(np.load(os.path.join(directory, "inputs.npz")))
-    results = {"flat": job_flat, "hybrid": job_hybrid}[job](inputs, rank)
-    np.savez(os.path.join(directory, f"rank{rank}.npz"), **results)
-    dist.barrier()
-    dist.destroy_process_group()
+    for spec in jobs.split(","):
+        job, world_size = spec.split(":")
+        if rank >= int(world_size):
+            break
+        initialize(f"file://{os.path.join(directory, f'store_{job}')}", int(world_size), rank)
+        results = JOBS[job](inputs, rank)
+        np.savez(os.path.join(directory, f"{job}_rank{rank}.npz"), **results)
+        dist.barrier()
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":
