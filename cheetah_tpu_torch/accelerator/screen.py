@@ -11,7 +11,10 @@ from cheetah_tpu_torch.accelerator.element import (
     ZeroLengthMixin,
     identity_transfer_map,
 )
-from cheetah_tpu_torch.ops.cloud_in_cell import cloud_in_cell_charge_deposition
+from cheetah_tpu_torch.ops.cloud_in_cell import (
+    cloud_in_cell_charge_deposition,
+    fixed_point_index_add,
+)
 from cheetah_tpu_torch.particles import Beam, ParameterBeam, ParticleBeam
 from cheetah_tpu_torch.particles.species import Species
 from cheetah_tpu_torch.utils.device import as_float_tensor
@@ -305,9 +308,10 @@ class Screen(ZeroLengthMixin, Element):
     def _histogram(
         self, x: torch.Tensor, y: torch.Tensor, weights: torch.Tensor
     ) -> torch.Tensor:
-        """Uniform-grid histogram with one ``index_add_`` over every
-        instance's pixels, ``(..., width, height)``; the right-most edges
-        are in the last pixels, as ``histogram2d`` has them."""
+        """Uniform-grid histogram with one sum over every instance's pixels
+        (``fixed_point_index_add``: the same bits on every run),
+        ``(..., width, height)``; the right-most edges are in the last
+        pixels, as ``histogram2d`` has them."""
         edges_x, edges_y = self.pixel_bin_edges
         nbx, nby = edges_x.shape[0] - 1, edges_y.shape[0] - 1
         batch_shape, num_particles = x.shape[:-1], x.shape[-1]
@@ -330,8 +334,9 @@ class Screen(ZeroLengthMixin, Element):
 
         offsets = torch.arange(x.shape[0], device=x.device)[:, None] * (nbx * nby)
         index = offsets + pixel(x, edges_x, nbx) * nby + pixel(y, edges_y, nby)
-        image = torch.zeros(x.shape[0] * nbx * nby, dtype=weights.dtype, device=weights.device)
-        image = image.index_add(0, index.reshape(-1), (weights * inside).reshape(-1))
+        image = fixed_point_index_add(
+            index.reshape(-1), (weights * inside).reshape(-1), x.shape[0] * nbx * nby
+        )
         return image.reshape(*batch_shape, nbx, nby)
 
     @property

@@ -23,28 +23,44 @@
 // that the sequential TPU grid revisits from program 0. Blocks on Hopper run
 // in parallel and in no order, so nothing carries over between them.
 //
-// Deposit. Where `group` grid components fit one block's shared memory
-// (32^3 in float32 is 128 KB of the 227 KB), deposit_private_kernel gives
-// every block a private copy of the grid there and a share of the
-// instance's particles, one block per SM: the 8 corners of each particle go
-// to shared-memory atomics, not to the global atomics on a Gaussian beam's
-// crowded centre cells that held the first port (one thread a particle,
-// 0.206 ms at 32^3 on an H100 80GB HBM3 at 700 W). Hopper has no
-// shared-memory float add (a float atomicAdd there is a compare-and-swap
-// loop), so a float copy of the value order set holds int32 fixed point,
-// whose adds are native and ~3x faster (cic_common.cuh SharedWindow; the
-// scale comes from the copy's sum of |rows|). Each block then stores its
-// copy, zeros included, to a (B, C, copies, cells) scratch, and
-// deposit_reduce_kernel sums the copies in a fixed order; one copy writes
-// the output directly. Grids whose component passes a block's budget (64^3
-// in float32 is 1 MB, float64 32^3 256 KB) keep deposit_multi_kernel: one
-// thread a particle, global atomicAdd into a grid the wrapper zeroes. A
-// cluster of 8 blocks sharing a 64^3 copy through distributed shared
-// memory, and 8 blocks each keeping a slab of it and reading all its
-// particles, both took 2-3x as long as those global atomics (PERF.md). On
-// the H100 the privatised deposit took 0.032 ms at the path's 32^3 shape
-// (1M particles, C = 1) and 0.082 ms at C = 3 (chip_smoke.py's
-// kernel_main_shape; compare_deposits.py).
+// Deposit. Every deposit gives the same bits on every run, as the TPU's do
+// (cheetah_tpu/ops/cloud_in_cell.py:14): its adds are integer adds, in
+// fixed point (cic_common.cuh), whose sums do not depend on the order in
+// which blocks and threads meet. Of the two designs weighed, integer
+// accumulation was chosen over a fixed-order reduction of per-block parts
+// (the TPU's revisited output block): the latter needs a stored part per
+// block and cell (17 MB of copies at the 32^3 path shape, some 30-50 MB of
+// windows for the tiled deposit at 128^3) and an ordered home for every
+// corner added to the grid directly, where fixed point needs one int64
+// grid (16 MB at 128^3) and no order at all. Where `group` grid components
+// fit one block's shared memory (32^3 in int32 is 128 KB of the 227 KB),
+// deposit_private_kernel gives every block a private copy of the grid there
+// and a share of the instance's particles, one block per SM: the 8 corners
+// of each particle go to shared-memory atomics, not to the global atomics
+// on a Gaussian beam's crowded centre cells that held the first port (one
+// thread a particle, 0.206 ms at 32^3 on an H100 80GB HBM3 at 700 W). A
+// copy holds int32 fixed point for the value order set in float32 (Hopper
+// has no shared-memory float add: a float atomicAdd there is a
+// compare-and-swap loop, where a 32-bit integer add is native and ~3x
+// faster) and int64 for every other order set and float64, each at a scale
+// from the copy's sum of |rows| (cic_common.cuh FixedWindow). Each block
+// then stores its copy, zeros included, to a (B, C, copies, cells) scratch,
+// and deposit_reduce_kernel sums the copies in a fixed order; one copy
+// writes the output directly. Grids whose window passes a block's budget
+// (64^3 in int32 is 1 MB, 32^3 in int64 256 KB: float64 32^3, and the
+// raised orders in float32) take deposit_multi_kernel: one thread a
+// particle, each corner a 64-bit integer reduction into int64 grids in
+// global memory at one power-of-two scale per (instance, component), fixed
+// before from the largest |row| (row_max_kernel) and converted after
+// (fixed_to_output_kernel; cic_common.cuh fixed_point_deposit). A cluster
+// of 8 blocks sharing a 64^3 copy through distributed shared memory, and 8
+// blocks each keeping a slab of it and reading all its particles, both
+// took 2-3x as long as global atomics (PERF.md). On an H100 80GB HBM3 at
+// 700 W the privatised deposit took 0.0365 ms at the path's 32^3 shape (1M
+// particles, C = 1; 1.13x the float-atomic version before it, in the same
+// call) and 0.0891 ms at C = 3 (1.08x); the global route 0.1062 ms at
+// 64^3 (1.05x) and 0.1412 ms for float64 32^3 (1.07x) (compare_deposits.py;
+// PERF.md section 6).
 //
 // Gather. It reads 8 corners per component: where a component of the grid
 // fits shared memory (32^3 in f32 is 128 KB of the 227 KB; the value and
@@ -86,6 +102,7 @@ using cic::BulkStage;
 using cic::corner_sum;
 using cic::device_limits;
 using cic::DeviceLimits;
+using cic::fixed_point_deposit;
 using cic::dispatch_gather;
 using cic::fits_int32;
 using cic::gather_particle;
@@ -97,17 +114,22 @@ using cic::make_orders;
 using cic::order_kind;
 using cic::OrderKind;
 using cic::OrderSet;
-using cic::SharedWindow;
+using cic::FixedScratch;
+using cic::fixed_add;
+using cic::FixedWindow;
 using cic::stageable;
 using cic::valid_orders;
 
 constexpr int kThreads = 256;
 
+// The global route: one thread a particle, each corner added to its
+// instance's and component's int64 grid in global memory at the grid's
+// scale (cic_common.cuh FixedScratch, fixed_add).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-deposit_multi_kernel(const T* __restrict__ pos, const T* __restrict__ rows,
-                     T* __restrict__ out, int64_t batch, int64_t num_particles,
-                     int num_components, int nx, int ny, int nt, OrderSet orders) {
+deposit_multi_kernel(const T* __restrict__ pos, const T* __restrict__ rows, FixedScratch fixed,
+                     int64_t batch, int64_t num_particles, int num_components, int nx, int ny,
+                     int nt, OrderSet orders) {
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (tid >= batch * num_particles) return;
   const int64_t b = tid / num_particles;
@@ -130,14 +152,16 @@ deposit_multi_kernel(const T* __restrict__ pos, const T* __restrict__ rows,
                  ? rows[((b * num_orders + o) * num_components + c) * num_particles + n]
                  : T(0);
     }
-    T* grid = out + (b * num_components + c) * cells;
+    const int64_t grid = b * num_components + c;
+    const double scale = fixed.scale(grid);
 #pragma unroll
     for (int corner = 0; corner < 8; ++corner) {
       const int cx = corner >> 2, cy = (corner >> 1) & 1, ct = corner & 1;
       if (!(ax.valid(cx) && ay.valid(cy) && at.valid(ct))) continue;
       const int64_t cell =
           (static_cast<int64_t>(ax.i0 + cx) * ny + (ay.i0 + cy)) * nt + (at.i0 + ct);
-      atomicAdd(grid + cell, corner_sum(r, orders, cx, cy, ct, ax, ay, at));
+      fixed_add(fixed.acc, fixed.poison, grid * cells + cell,
+                static_cast<double>(corner_sum(r, orders, cx, cy, ct, ax, ay, at)), scale);
     }
   }
 }
@@ -147,37 +171,49 @@ deposit_multi_kernel(const T* __restrict__ pos, const T* __restrict__ rows,
 // (copies, groups * batch): blockIdx.y picks the instance and the group of
 // `group` components, blockIdx.x the copy p, which takes the instance's
 // particles [N p / P, N (p + 1) / P). The block adds them into its copy of
-// the grid in shared memory (int32 fixed point for float, cic_common.cuh
-// SharedWindow), then stores every cell as T, zeros included, to dst[b, c,
-// p, cell] of a (B, C, P, cells) array: the output itself when P = 1, else
-// the scratch that deposit_reduce_kernel sums.
+// the grid in shared memory (fixed point, cic_common.cuh FixedWindow: int32
+// for the value order set in float32, else int64), then stores every cell
+// as T, zeros included, to dst[b, c, p, cell] of a (B, C, P, cells) array:
+// the output itself when P = 1, else the scratch that deposit_reduce_kernel
+// sums.
 template <typename T, int Kind>
 __global__ void __launch_bounds__(cic::kDepositThreads, 1)
 deposit_private_kernel(const T* __restrict__ pos, const T* __restrict__ rows,
                        T* __restrict__ dst, int64_t num_particles, int num_components, int nx,
                        int ny, int nt, int group, int copies, OrderSet orders) {
-  extern __shared__ __align__(16) unsigned char window_bytes[];
-  __shared__ float partial[33];
+  using Acc = cic::Accumulator<T, Kind>;
+  extern __shared__ __align__(16) unsigned char window_storage[];
+  __shared__ double partial[33];
   const int groups = (num_components + group - 1) / group;
   const int64_t b = blockIdx.y / groups;
   const int c0 = static_cast<int>(blockIdx.y - b * groups) * group;
   const int pass = min(group, num_components - c0);
   const int cells = nx * ny * nt;
   const int copy = blockIdx.x;
-  SharedWindow<T> window{reinterpret_cast<T*>(window_bytes)};
+  FixedWindow<T, Acc> window{reinterpret_cast<Acc*>(window_storage)};
   // The rows of component c0, order 0, of the instance.
   const T* component_rows = rows + (b * orders.count * num_components + c0) * num_particles;
-  const int64_t first = num_particles * copy / copies + threadIdx.x;
+  const int64_t begin = num_particles * copy / copies;
   const int64_t end = num_particles * (copy + 1) / copies;
+  const int64_t order_stride = static_cast<int64_t>(num_components) * num_particles;
+  const T* instance_pos = pos + b * num_particles * 3;
   auto identity = [](int64_t i) { return i; };
-  cic::prepare_window<Kind>(window, pass * cells, component_rows, first, end, blockDim.x,
-                            identity, num_particles, pass, partial);
-  cic::deposit_particles<T, Kind>(
-      pos + b * num_particles * 3, component_rows, first, end, blockDim.x, identity,
-      num_particles, num_components * num_particles, pass, nx, ny, nt, orders,
-      [&](int g, int ix, int iy, int it, T value) {
-        window.add(g * cells + (ix * ny + iy) * nt + it, value);
-      });
+  cic::prepare_window(window, pass * cells, component_rows, begin + threadIdx.x, end, blockDim.x,
+                      identity, num_particles, order_stride, orders.count, pass, partial);
+  if (window.exact) {
+    cic::deposit_particles<T, Kind>(
+        instance_pos, component_rows, begin + threadIdx.x, end, blockDim.x, identity,
+        num_particles, order_stride, pass, nx, ny, nt, orders,
+        [&](int g, int ix, int iy, int it, T value) {
+          window.add(g * cells + (ix * ny + iy) * nt + it, value);
+        });
+  } else if (threadIdx.x == 0) {
+    cic::deposit_particles<T, Kind>(
+        instance_pos, component_rows, begin, end, 1, identity, num_particles, order_stride, pass,
+        nx, ny, nt, orders, [&](int g, int ix, int iy, int it, T value) {
+          window.add_in_order(g * cells + (ix * ny + iy) * nt + it, value);
+        });
+  }
   __syncthreads();
 
   for (int v = threadIdx.x; v < pass * cells; v += blockDim.x) {
@@ -267,43 +303,50 @@ unsigned int num_blocks(int64_t work) {
 }
 
 template <typename T, int Kind>
-cudaError_t deposit_private(const T* pos, const T* rows, T* out, T* scratch, int64_t batch,
-                            int64_t num_particles, int num_components, int nx, int ny, int nt,
-                            int group, int copies, const OrderSet& set, cudaStream_t stream) {
+cudaError_t deposit_private(const T* pos, const T* rows, T* out, void* scratch,
+                            int64_t scratch_bytes, int64_t batch, int64_t num_particles,
+                            int num_components, int nx, int ny, int nt, int group, int copies,
+                            const OrderSet& set, cudaStream_t stream) {
   DeviceLimits limits;
   cudaError_t status = device_limits(&limits);
   if (status != cudaSuccess) return status;
   const int64_t cells = static_cast<int64_t>(nx) * ny * nt;
   const int groups = (num_components + group - 1) / group;
-  const size_t shared = sizeof(T) * group * cells;
-  if (static_cast<int64_t>(shared) > limits.staging || groups * batch > 65535 ||
-      (copies > 1 && scratch == nullptr))
+  const int64_t shared = cic::window_bytes<cic::Accumulator<T, Kind>>(group * cells);
+  const int64_t copies_bytes =
+      static_cast<int64_t>(sizeof(T)) * batch * num_components * copies * cells;
+  if (shared > limits.staging || groups * batch > 65535 ||
+      (copies > 1 && (scratch == nullptr || scratch_bytes < copies_bytes)))
     return cudaErrorInvalidValue;
   static bool configured[kCachedDevices] = {};
   auto kernel = deposit_private_kernel<T, Kind>;
   status = allow_staging(kernel, limits, configured);
   if (status != cudaSuccess) return status;
+  T* copied = copies > 1 ? static_cast<T*>(scratch) : out;
   const dim3 grid(static_cast<unsigned int>(copies), static_cast<unsigned int>(groups * batch));
-  kernel<<<grid, cic::kDepositThreads, shared, stream>>>(pos, rows, copies > 1 ? scratch : out,
-                                                         num_particles, num_components, nx, ny,
-                                                         nt, group, copies, set);
+  kernel<<<grid, cic::kDepositThreads, shared, stream>>>(pos, rows, copied, num_particles,
+                                                         num_components, nx, ny, nt, group,
+                                                         copies, set);
   status = cudaGetLastError();
   if (status != cudaSuccess || copies == 1) return status;
   const int64_t outputs = batch * num_components * cells;
   deposit_reduce_kernel<T><<<num_blocks(outputs), kThreads, 0, stream>>>(
-      scratch, out, outputs, static_cast<int>(cells), copies);
+      copied, out, outputs, static_cast<int>(cells), copies);
   return cudaGetLastError();
 }
 
 // group > 0: the privatised deposit of `group` components a block, with
 // `copies` copies of the grid per instance and group (ops/cic_kernels.py
 // untiled_deposit_geometry sizes them from the card), into `out` directly
-// or through `scratch` (B * C * copies * cells values). group = 0:
-// deposit_multi_kernel's global atomics into `out`, which the caller zeroes.
+// or through `scratch` (B * C * copies * cells values of T). group = 0:
+// deposit_multi_kernel into int64 grids carved from `scratch`
+// (cic_common.cuh FixedScratch, which this zeroes), then `out` from them.
+// `scratch_bytes` is the scratch's size, checked against what the route
+// needs.
 template <typename T>
-int deposit(const void* pos, const void* rows, void* out, void* scratch, int64_t batch,
-            int64_t num_particles, int num_components, int nx, int ny, int nt, int group,
-            int copies, const int* orders, int num_orders, void* stream) {
+int deposit(const void* pos, const void* rows, void* out, void* scratch, int64_t scratch_bytes,
+            int64_t batch, int64_t num_particles, int num_components, int nx, int ny, int nt,
+            int group, int copies, const int* orders, int num_orders, void* stream) {
   if (!valid_orders(orders, num_orders) || group < 0 || copies < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const OrderSet set = make_orders(orders, num_orders);
@@ -312,19 +355,23 @@ int deposit(const void* pos, const void* rows, void* out, void* scratch, int64_t
   const T* r = static_cast<const T*>(rows);
   T* o = static_cast<T*>(out);
   if (group > 0) {
-    T* sc = static_cast<T*>(scratch);
     return static_cast<int>(
         order_kind(orders, num_orders) == cic::kValueOrders
-            ? deposit_private<T, cic::kValueOrders>(p, r, o, sc, batch, num_particles,
-                                                    num_components, nx, ny, nt, group, copies,
-                                                    set, s)
-            : deposit_private<T, cic::kGenericOrders>(p, r, o, sc, batch, num_particles,
-                                                      num_components, nx, ny, nt, group,
-                                                      copies, set, s));
+            ? deposit_private<T, cic::kValueOrders>(p, r, o, scratch, scratch_bytes, batch,
+                                                    num_particles, num_components, nx, ny, nt,
+                                                    group, copies, set, s)
+            : deposit_private<T, cic::kGenericOrders>(p, r, o, scratch, scratch_bytes, batch,
+                                                      num_particles, num_components, nx, ny,
+                                                      nt, group, copies, set, s));
   }
-  deposit_multi_kernel<T><<<num_blocks(batch * num_particles), kThreads, 0, s>>>(
-      p, r, o, batch, num_particles, num_components, nx, ny, nt, set);
-  return static_cast<int>(cudaGetLastError());
+  const int64_t cells = static_cast<int64_t>(nx) * ny * nt;
+  return static_cast<int>(fixed_point_deposit(
+      r, scratch, scratch_bytes, o, batch, num_particles, num_components, num_orders, cells, s,
+      [&](const FixedScratch& fixed) {
+        deposit_multi_kernel<T><<<num_blocks(batch * num_particles), kThreads, 0, s>>>(
+            p, r, fixed, batch, num_particles, num_components, nx, ny, nt, set);
+        return cudaGetLastError();
+      }));
 }
 
 template <typename T, int Kind, int O>
@@ -399,19 +446,19 @@ extern "C" {
 int cic_device_limits(int device, int* out) { return cic::limits_of_device(device, out); }
 
 int cic_deposit_multi_f32(const void* pos, const void* rows, void* out, void* scratch,
-                          int64_t batch, int64_t num_particles, int num_components, int nx,
-                          int ny, int nt, int group, int copies, const int* orders,
-                          int num_orders, void* stream) {
-  return deposit<float>(pos, rows, out, scratch, batch, num_particles, num_components, nx, ny, nt,
-                      group, copies, orders, num_orders, stream);
+                          int64_t scratch_bytes, int64_t batch, int64_t num_particles,
+                          int num_components, int nx, int ny, int nt, int group, int copies,
+                          const int* orders, int num_orders, void* stream) {
+  return deposit<float>(pos, rows, out, scratch, scratch_bytes, batch, num_particles,
+                        num_components, nx, ny, nt, group, copies, orders, num_orders, stream);
 }
 
 int cic_deposit_multi_f64(const void* pos, const void* rows, void* out, void* scratch,
-                          int64_t batch, int64_t num_particles, int num_components, int nx,
-                          int ny, int nt, int group, int copies, const int* orders,
-                          int num_orders, void* stream) {
-  return deposit<double>(pos, rows, out, scratch, batch, num_particles, num_components, nx, ny, nt,
-                      group, copies, orders, num_orders, stream);
+                          int64_t scratch_bytes, int64_t batch, int64_t num_particles,
+                          int num_components, int nx, int ny, int nt, int group, int copies,
+                          const int* orders, int num_orders, void* stream) {
+  return deposit<double>(pos, rows, out, scratch, scratch_bytes, batch, num_particles,
+                         num_components, nx, ny, nt, group, copies, orders, num_orders, stream);
 }
 
 int cic_gather_multi_f32(const void* grids, const void* pos, void* out, int64_t batch,

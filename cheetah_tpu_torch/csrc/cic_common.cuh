@@ -1,10 +1,12 @@
 // Shared pieces of the multi-order CIC kernels (cic.cu, cic_tiled.cu).
 //
 // Both deposits privatise their grid or window in shared memory
-// (SharedWindow, deposit_particles below): a block adds its particles'
+// (FixedWindow, deposit_particles below): a block adds its particles'
 // corner values there with shared-memory atomics and adds or stores each
 // cell to global memory once. A grid or window larger than one block's
 // budget takes global atomics instead (the wrappers' geometry decides).
+// Every add is an integer add (fixed point, below), so that each deposit
+// gives the same bits on every run.
 //
 // Per axis, with i0 = floor(p) and f = p - i0, order 0 weighs corner i0 with
 // 1 - f and corner i0 + 1 with f; order 1 (the a.e. derivative) weighs them
@@ -296,108 +298,357 @@ struct BulkStage {
 };
 
 // ---------------------------------------------------------------------------
-// Deposits into a grid privatised in shared memory (cic.cu, cic_tiled.cu).
+// Deposits in fixed point (cic.cu, cic_tiled.cu).
 // ---------------------------------------------------------------------------
+//
+// Every deposit adds its corner values as integers, so that its result does
+// not depend on the order in which blocks and threads meet: integer adds
+// give the same bits in any order, where float adds and atomics do not.
+// Value v is added as rn(v * scale), read back as the integer sum times
+// 1 / scale. A scale is fixed before any add from S, a bound on the sum of
+// |rows| over every order and particle that adds into the cells: no cell's
+// sum exceeds it, since a particle adds at most one corner to a cell and
+// no corner weighs more than 1.
+//
+// - A window in shared memory (a privatised untiled grid, a tile's
+//   window) takes S, the sum of its own particles' |rows| (prepare_window):
+//   it holds int32 at scale 2^30 / S for the value order set in float32
+//   (Hopper's shared-memory int32 add is native, a float add a
+//   compare-and-swap loop; a term rounds by at most S 2^-31), else int64 at
+//   2^(61 - floor(log2 S)) (by at most S 2^-62).
+// - A grid in global memory (the untiled global route, the tiled kernel's
+//   grid) is int64 at one power-of-two scale per (instance, component)
+//   within a factor 4 of 2^62 / S, S = N O M: N particles, O orders, M the
+//   largest finite |row| of the instance and component (row_max_kernel; a
+//   max is the same in any order). A term rounds by at most S 2^-61.
+//   Windows are converted to it when they are added.
+//
+// A cell of K terms rounds by at most K such halves. In a global grid a
+// non-finite term is not added: it sets the cell's two poison bits (+inf
+// 1, -inf 2, NaN both), and the cell reads +inf, -inf or NaN, as a float
+// sum of the same terms would in any order. A window whose rows are not
+// all finite, or whose S passes T's range, is not exact: one thread adds
+// its particles in their order as floats instead (rare; the same order on
+// every run).
 
 // Threads of a deposit block (DEPOSIT_THREADS in ops/cic_common.py).
 constexpr int kDepositThreads = 512;
 
-// Where a block adds its corner values: a window of `group` components
-// (the whole grid, or a tile's R + 1 rows) in `local`, shared memory.
-//
-// Hopper has no shared-memory float add: atomicAdd on a float or double
-// in shared memory is a compare-and-swap loop (ATOMS.CAST.SPIN), about one
-// lane a clock on an SM, where a 32-bit integer add is native and ~3x
-// faster (scripts_torch/bench_shared_atomics.py: 61000 adds a block, 132
-// blocks, 0.071 ms against 0.024 on an H100 80GB HBM3 at 700 W). So a
-// float window with `fixed` set holds int32 fixed
-// point: value v is added as rn(v * scale), read back as int * unscale.
-// The scale (prepare_window below) bounds every sum of the window by 2^30.
-// Integer sums do not depend on their order.
-template <typename T>
-struct SharedWindow {
-  T* local;
-  bool fixed;    // float windows only: int32 fixed point
-  float scale;
-  float unscale;
+// The row_max pass: 2048 particles a block, 8 a thread, loaded together.
+constexpr int kRowMaxThreads = 256;
+constexpr int kRowMaxUnroll = 8;
 
-  __device__ __forceinline__ void add(int v, T value) const {
-    if constexpr (std::is_same<T, float>::value) {
-      if (fixed) {
-        atomicAdd(reinterpret_cast<int*>(local) + v, __float2int_rn(value * scale));
-        return;
-      }
-    }
-    atomicAdd(local + v, value);
+// The poison bits of a cell: 2 bits a cell, 16 cells a 32-bit word.
+__device__ __forceinline__ void add_poison(uint32_t* poison, int64_t cell, double value) {
+  const uint32_t bits = value != value ? 3u : (value > 0 ? 1u : 2u);
+  atomicOr(poison + (cell >> 4), bits << ((cell & 15) * 2));
+}
+
+__device__ __forceinline__ uint32_t poison_of(const uint32_t* poison, int64_t cell) {
+  return (poison[cell >> 4] >> ((cell & 15) * 2)) & 3u;
+}
+
+template <typename T>
+__device__ __forceinline__ T poisoned(uint32_t bits) {
+  if constexpr (std::is_same<T, float>::value) {
+    return __int_as_float(
+        static_cast<int>(bits == 1u ? 0x7f800000u : (bits == 2u ? 0xff800000u : 0x7fc00000u)));
+  } else {
+    return __longlong_as_double(bits == 1u   ? 0x7ff0000000000000LL
+                                : bits == 2u ? static_cast<long long>(0xfff0000000000000ULL)
+                                             : 0x7ff8000000000000LL);
+  }
+}
+
+// 2^e for e in [-1022, 1022], exactly, from its bits (e clamped there).
+__device__ __forceinline__ double pow2(int e) {
+  e = e < -1022 ? -1022 : (e > 1022 ? 1022 : e);
+  return __longlong_as_double(static_cast<long long>(1023 + e) << 52);
+}
+
+// 2^(61 - floor(log2 s)) for s > 0 (1 for s = 0): with it, |sum| <= s
+// stays below 2^62, and a term rounds by at most s * 2^-62.
+__device__ __forceinline__ double power_of_two_scale(double s) {
+  return s > 0.0 ? pow2(61 - ilogb(s)) : 1.0;
+}
+
+// Adds `value` to int64 cell `cell` of a global grid at `scale`, or sets
+// its poison bits. The add compiles to a reduction (RED.E.ADD.64).
+__device__ __forceinline__ void fixed_add(long long* acc, uint32_t* poison, int64_t cell,
+                                          double value, double scale) {
+  if (!isfinite(value)) {
+    add_poison(poison, cell, value);
+    return;
+  }
+  atomicAdd(reinterpret_cast<unsigned long long*>(acc) + cell,
+            static_cast<unsigned long long>(__double2ll_rn(value * scale)));
+}
+
+// The scratch of a deposit into int64 global grids, B * C grids of `cells`
+// cells, carved from one zeroed buffer (ops/cic_common.py
+// fixed_scratch_bytes): the int64 grids, their poison bits, and each
+// grid's largest finite |row| M as float64 bits (row_max_kernel).
+// `terms` = N O.
+struct FixedScratch {
+  long long* acc;
+  uint32_t* poison;
+  unsigned long long* row_max;
+  double terms;
+
+  static int64_t bytes(int64_t grids, int64_t cells) {
+    const int64_t values = grids * cells;
+    return 8 * (values + (values + 31) / 32 + grids);
   }
 
-  __device__ __forceinline__ T read(int i) const {
-    if constexpr (std::is_same<T, float>::value) {
-      if (fixed) return static_cast<float>(reinterpret_cast<const int*>(local)[i]) * unscale;
+  static FixedScratch carve(void* base, int64_t grids, int64_t cells, double terms) {
+    long long* words = static_cast<long long*>(base);
+    const int64_t values = grids * cells;
+    return FixedScratch{words, reinterpret_cast<uint32_t*>(words + values),
+                        reinterpret_cast<unsigned long long*>(words + values + (values + 31) / 32),
+                        terms};
+  }
+
+  // e of the grid's scale 2^e (pow2): 2^e N O M < 2^62, within a factor
+  // 4 of it.
+  __device__ __forceinline__ int exponent(int64_t grid) const {
+    const double m = __longlong_as_double(static_cast<long long>(row_max[grid]));
+    return m > 0.0 ? 60 - ilogb(terms) - ilogb(m) : 0;
+  }
+
+  __device__ __forceinline__ double scale(int64_t grid) const { return pow2(exponent(grid)); }
+};
+
+// The row_max pass, grid (blocks * B * C): block k of (instance b,
+// component c) takes the largest finite |rows[b, o, c, n]| over every
+// order o and its share of the particles n, and folds it into
+// row_max[b C + c] (non-negative doubles order as their bits do). A max is
+// the same in any order.
+template <typename T>
+__global__ void __launch_bounds__(kRowMaxThreads)
+row_max_kernel(const T* __restrict__ rows, FixedScratch scratch, int64_t num_particles,
+               int num_components, int num_orders, int blocks) {
+  __shared__ double warp_max[kRowMaxThreads / 32];
+  const int64_t bc = blockIdx.x / blocks;
+  const int k = static_cast<int>(blockIdx.x - bc * blocks);
+  const int64_t b = bc / num_components;
+  const int c = static_cast<int>(bc - b * num_components);
+  const int64_t start = num_particles * k / blocks;
+  const int64_t end = num_particles * (k + 1) / blocks;
+  double largest = 0.0;
+  for (int o = 0; o < num_orders; ++o) {
+    const T* row = rows + ((b * num_orders + o) * num_components + c) * num_particles;
+    for (int64_t base = start + threadIdx.x; base < end;
+         base += kRowMaxUnroll * static_cast<int64_t>(blockDim.x)) {
+      T value[kRowMaxUnroll];
+#pragma unroll
+      for (int u = 0; u < kRowMaxUnroll; ++u) {
+        const int64_t n = base + static_cast<int64_t>(u) * blockDim.x;
+        value[u] = n < end ? row[n] : T(0);
+      }
+#pragma unroll
+      for (int u = 0; u < kRowMaxUnroll; ++u) {
+        const double magnitude = fabs(static_cast<double>(value[u]));
+        if (isfinite(magnitude)) largest = fmax(largest, magnitude);
+      }
     }
-    return local[i];
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1)
+    largest = fmax(largest, __shfl_down_sync(0xffffffffu, largest, d));
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x / 32] = largest;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kRowMaxThreads / 32; ++w) largest = fmax(largest, warp_max[w]);
+    atomicMax(scratch.row_max + bc, static_cast<unsigned long long>(__double_as_longlong(largest)));
+  }
+}
+
+// out[i] = the int64 cell i times its grid's 1 / scale as T, or the cell's
+// poison: grids (B * C) of `cells` cells, two cells a thread (one 16-byte
+// load; an even cell and the next share their poison word).
+template <typename T>
+__global__ void __launch_bounds__(256)
+fixed_to_output_kernel(FixedScratch scratch, T* __restrict__ out, int64_t values, int64_t cells) {
+  const int64_t i = 2 * (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x);
+  if (i >= values) return;
+  auto convert = [&](int64_t cell, long long value) {
+    const uint32_t bits = poison_of(scratch.poison, cell);
+    return bits ? poisoned<T>(bits)
+                : static_cast<T>(static_cast<double>(value) *
+                                 pow2(-scratch.exponent(cell / cells)));
+  };
+  if (i + 1 < values) {
+    const longlong2 pair = *reinterpret_cast<const longlong2*>(scratch.acc + i);
+    out[i] = convert(i, pair.x);
+    out[i + 1] = convert(i + 1, pair.y);
+  } else {
+    out[i] = convert(i, scratch.acc[i]);
+  }
+}
+
+// Zeroes `scratch` (a FixedScratch of B * C = `grids` grids), finds each
+// grid's M (row_max_kernel), launches `deposit` (which adds into the int64
+// grids), then writes `out` from them (fixed_to_output_kernel), all on
+// `stream`.
+template <typename T, typename Deposit>
+cudaError_t fixed_point_deposit(const T* rows, void* scratch, int64_t scratch_bytes, T* out,
+                                int64_t batch, int64_t num_particles, int num_components,
+                                int num_orders, int64_t cells, cudaStream_t stream,
+                                Deposit deposit) {
+  const int64_t grids = batch * num_components;
+  const int64_t per_grid = (num_particles + 2047) / 2048;
+  const int blocks = static_cast<int>(per_grid < 1024 ? per_grid : 1024);
+  if (scratch == nullptr || scratch_bytes < FixedScratch::bytes(grids, cells) ||
+      grids * blocks > INT32_MAX)
+    return cudaErrorInvalidValue;
+  cudaError_t status = cudaMemsetAsync(scratch, 0, scratch_bytes, stream);
+  if (status != cudaSuccess) return status;
+  const FixedScratch fixed = FixedScratch::carve(
+      scratch, grids, cells, static_cast<double>(num_particles) * num_orders);
+  row_max_kernel<T><<<static_cast<unsigned int>(grids * blocks), kRowMaxThreads, 0, stream>>>(
+      rows, fixed, num_particles, num_components, num_orders, blocks);
+  status = cudaGetLastError();
+  if (status != cudaSuccess) return status;
+  status = deposit(fixed);
+  if (status != cudaSuccess) return status;
+  const int64_t values = grids * cells;
+  fixed_to_output_kernel<T><<<static_cast<unsigned int>((values + 511) / 512), 256, 0, stream>>>(
+      fixed, out, values, cells);
+  return cudaGetLastError();
+}
+
+// Where a block adds its corner values: a window of `group` components
+// (the whole grid, or a tile's R + 1 rows) in shared memory, `Acc` cells
+// (int for the value order set in float32, else long long). An exact
+// window adds in fixed point (add, any thread, any order); a window that
+// is not (non-finite rows, or S past T's range) holds T values, added by
+// one thread in the particles' order (add_in_order).
+template <typename T, typename Acc>
+struct FixedWindow {
+  using Scale = typename std::conditional<sizeof(Acc) == 4, float, double>::type;
+  Acc* local;
+  Scale scale;
+  Scale unscale;
+  bool exact;
+
+  __device__ __forceinline__ void add(int v, T value) const {
+    if constexpr (sizeof(Acc) == 4) {
+      atomicAdd(reinterpret_cast<int*>(local) + v, __float2int_rn(value * scale));
+    } else {
+      const long long units = __double2ll_rn(static_cast<double>(value) * scale);
+      atomicAdd(reinterpret_cast<unsigned long long*>(local) + v,
+                static_cast<unsigned long long>(units));
+    }
+  }
+
+  __device__ __forceinline__ void add_in_order(int v, T value) const {
+    reinterpret_cast<T*>(local)[v] += value;
+  }
+
+  __device__ __forceinline__ T read(int v) const {
+    if (!exact) return reinterpret_cast<const T*>(local)[v];
+    return static_cast<T>(static_cast<Scale>(local[v]) * unscale);
   }
 };
 
-// Every thread of the block: zeroes the `values` values of the window (16
-// bytes a store; `local` is 16-byte aligned) and, for a float window of the
-// value order set (Kind), fixes its int32 fixed point. S, the sum of
-// |rows[g * row_stride + index(i)]| over the group's components and the
-// particles first + k * stride below `end`, bounds every cell of the
-// window, since no corner weighs more than 1; scale = 2^30 / S leaves the
-// sums a factor 2 below int32's range (S is summed in float: 1e-3 of slack
-// is plenty). A term then rounds by at most S * 2^-31: with at most 16384
-// particles a copy or chunk (the wrappers' MAX_WINDOW_PARTICLES), 2^-17 of
-// the largest row. Other order sets, whose signed derivative terms cancel
-// in a cell far below S, keep float atomics, as does a window whose S is
-// not finite (a NaN or infinite row). `partial` is 33 floats of the
-// block's shared memory. Ends with the block synchronised, the window
-// ready for adds.
-template <int Kind, typename T, typename Index>
-__device__ __forceinline__ void prepare_window(SharedWindow<T>& window, int values,
-                                               const T* __restrict__ rows, int64_t first,
-                                               int64_t end, int64_t stride, Index index,
-                                               int64_t row_stride, int group, float* partial) {
-  const int quads = static_cast<int>(values * sizeof(T) / 16);
-  for (int i = threadIdx.x; i < quads; i += blockDim.x)
-    reinterpret_cast<int4*>(window.local)[i] = make_int4(0, 0, 0, 0);
-  for (int i = quads * 16 / sizeof(T) + threadIdx.x; i < values; i += blockDim.x)
-    window.local[i] = T(0);
-  window.fixed = false;
-  window.scale = window.unscale = 1.0f;
-  if constexpr (std::is_same<T, float>::value && Kind == kValueOrders) {
-    float sum = 0.0f;
-    // Eight particles' loads in flight together.
-    for (int64_t base = first; base < end; base += 8 * stride) {
-      int64_t n[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) n[u] = base + u * stride < end ? index(base + u * stride) : -1;
-      for (int g = 0; g < group; ++g) {
-#pragma unroll
-        for (int u = 0; u < 8; ++u) sum += n[u] >= 0 ? fabsf(rows[g * row_stride + n[u]]) : 0.0f;
-      }
-    }
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) sum += __shfl_down_sync(0xffffffffu, sum, d);
-    if ((threadIdx.x & 31) == 0) partial[threadIdx.x / 32] = sum;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float total = 0.0f;
-      for (int w = 0; w < static_cast<int>(blockDim.x / 32); ++w) total += partial[w];
-      partial[32] = total;
-    }
-    __syncthreads();
-    const float total = partial[32];
-    if (isfinite(total)) {
-      window.fixed = true;
-      if (total > 0.0f) {
-        window.scale = 1073741824.0f / total;
-        window.unscale = total * (1.0f / 1073741824.0f);
-      }
+// Bytes of a window of `values` cells of `Acc`, rounded up to 16, plus
+// `stage` bytes after them (ops/cic_common.py window_bytes).
+template <typename Acc>
+__host__ __device__ inline int64_t window_bytes(int64_t values, int64_t stage = 0) {
+  return (values * static_cast<int64_t>(sizeof(Acc)) + 15) / 16 * 16 + stage;
+}
+
+template <typename T, int Kind>
+using Accumulator =
+    typename std::conditional<std::is_same<T, float>::value && Kind == kValueOrders, int,
+                              long long>::type;
+
+// The window's scale from S = `total`, and whether it is exact: every row
+// finite (`finite`, the whole block's) and S within T's range, so that no
+// term is infinite.
+template <typename T, typename Acc>
+__device__ __forceinline__ void set_window_scale(FixedWindow<T, Acc>& window, double total,
+                                                 bool finite) {
+  window.exact = finite && total <= static_cast<double>(std::is_same<T, float>::value
+                                                            ? 3.4028234663852886e38
+                                                            : 1.7976931348623157e308);
+  if constexpr (sizeof(Acc) == 4) {
+    window.scale = window.unscale = 1.0f;
+    if (total > 0.0) {
+      window.scale = fminf(static_cast<float>(1073741824.0 / total), 3.0e38f);
+      window.unscale = static_cast<float>(total * (1.0 / 1073741824.0));
     }
   } else {
-    __syncthreads();
+    window.scale = power_of_two_scale(total);
+    window.unscale = 1.0 / window.scale;
   }
+}
+
+// Zeroes `bytes` bytes at `local` (16-byte aligned; a multiple of 4),
+// every thread of the block.
+__device__ __forceinline__ void zero_shared(void* local, int64_t bytes) {
+  const int quads = static_cast<int>(bytes / 16);
+  for (int i = threadIdx.x; i < quads; i += blockDim.x)
+    reinterpret_cast<int4*>(local)[i] = make_int4(0, 0, 0, 0);
+  for (int i = quads * 4 + threadIdx.x; i < static_cast<int>(bytes / 4); i += blockDim.x)
+    reinterpret_cast<int*>(local)[i] = 0;
+}
+
+// Sums `sum` over the block (each thread's share, then the warps' shuffle
+// trees, then the warps in turn: the same order on every run) into
+// partial[32], and whether `finite` holds on every thread. `partial` is 33
+// doubles of the block's shared memory. Ends with the block synchronised.
+__device__ __forceinline__ bool block_sum(double sum, bool finite, double* partial) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) sum += __shfl_down_sync(0xffffffffu, sum, d);
+  if ((threadIdx.x & 31) == 0) partial[threadIdx.x / 32] = sum;
+  finite = __syncthreads_and(finite);
+  if (threadIdx.x == 0) {
+    double total = 0.0;
+    for (int w = 0; w < static_cast<int>(blockDim.x / 32); ++w) total += partial[w];
+    partial[32] = total;
+  }
+  __syncthreads();
+  return finite;
+}
+
+// Every thread of the block: zeroes the window's `values` cells (16 bytes
+// a store; `local` is 16-byte aligned) and fixes the window's scale from S,
+// the sum of |rows[o * order_stride + g * row_stride + index(i)]| over the
+// orders, the group's components and the particles first + k * stride
+// below `end`, summed in float64: 2^30 / S for an int32 window (a term
+// rounds by at most S * 2^-31: with at most 16384 particles a copy or
+// chunk, the wrappers' MAX_WINDOW_PARTICLES, 2^-17 of the largest row),
+// else power_of_two_scale(S). `partial` is 33 doubles of the block's shared
+// memory. Ends with the block synchronised, the window ready for adds.
+template <typename T, typename Acc, typename Index>
+__device__ __forceinline__ void prepare_window(FixedWindow<T, Acc>& window, int values,
+                                               const T* __restrict__ rows, int64_t first,
+                                               int64_t end, int64_t stride, Index index,
+                                               int64_t row_stride, int64_t order_stride,
+                                               int num_orders, int group, double* partial) {
+  zero_shared(window.local, values * static_cast<int64_t>(sizeof(Acc)));
+  double sum = 0.0;
+  bool finite = true;
+  // Eight particles' loads in flight together.
+  for (int64_t base = first; base < end; base += 8 * stride) {
+    int64_t n[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) n[u] = base + u * stride < end ? index(base + u * stride) : -1;
+    for (int o = 0; o < num_orders; ++o) {
+      for (int g = 0; g < group; ++g) {
+        const T* component = rows + o * order_stride + g * row_stride;
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const double value = n[u] >= 0 ? fabs(static_cast<double>(component[n[u]])) : 0.0;
+          finite = finite && isfinite(value);
+          sum += value;
+        }
+      }
+    }
+  }
+  finite = block_sum(sum, finite, partial);
+  set_window_scale(window, partial[32], finite);
 }
 
 // The deposit of particles first, first + stride, ... below `end`: for each

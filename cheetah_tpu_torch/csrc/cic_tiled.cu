@@ -55,20 +55,21 @@
 //   through `perm`. It walks its chunk tile by tile: a tile's segment of
 //   at least min_window_run particles goes into the tile's window, (R + 1)
 //   rows privatised in shared memory (128 KB in float32 at 128^3: R = 1,
-//   two rows), as int32 fixed point for the value order set (Hopper has no
-//   shared-memory float add; cic_common.cuh SharedWindow), and the window
-//   is added to the zeroed global grid by one bulk reduction of the copy
-//   engine (cp.reduce.async.bulk .add.f32), where the halo row lands in
-//   the next tile's first row, which folds it; a shorter segment (a sparse
-//   edge tile, whose window would cost more to zero and flush than its
-//   atomics) adds its corners to the global grid directly, as does every
-//   segment where a window does not fit (float64 at 128^3 is 256 KB). Each
-//   component of the backward deposit (C = 3) is a block of its own. On an
-//   H100 80GB HBM3 at 700 W the kernel, given its plan, took 0.043 ms at
-//   the 128^3 path shape (1M particles, C = 1) and 0.116 ms at C = 3,
-//   against 0.129 and 0.392 ms for the first port, which read positions
-//   through `perm` and zeroed and scanned a window for every 8192-particle
-//   run (compare_deposits.py; PERF.md).
+//   two rows), as int32 fixed point for the value order set in float32
+//   (Hopper has no shared-memory float add) and int64 otherwise
+//   (cic_common.cuh FixedWindow), and the window is added to int64 grids in
+//   global memory by bulk reductions of the copy engine
+//   (cp.reduce.async.bulk .add.u64; an int32 window widened through a
+//   two-buffer stage), where the halo row lands in the next tile's first
+//   row, which folds it; a shorter segment (a sparse edge tile, whose
+//   window would cost more to zero and flush than its atomics) adds its
+//   corners to the int64 grids directly, as does every segment where a
+//   window does not fit (float64 at 128^3 is 256 KB). The int64 grids hold
+//   one power-of-two scale per (instance, component), from the largest
+//   |row| (row_max_kernel) before the deposit; fixed_to_output_kernel
+//   writes the output from them after it. Every add is an integer add, so
+//   the deposit gives the same bits on every run, as the TPU's does. Each
+//   component of the backward deposit (C = 3) is a block of its own.
 // - gather: runs of one tile too, whose positions it reads from the plan's
 //   sorted payload, contiguously. Where a tile's window fits shared memory
 //   (gather_tiled_staged_kernel: the value and raised order sets), each
@@ -92,11 +93,16 @@
 // latency of its per-block steps bound the plan; the scattered reads of
 // the unsort and the windows' copies bound the gather. Shared-memory
 // atomics (about 8M a deposit at C = 1, a lane or two a clock per SM), the
-// scattered reads of rows through `perm` and each window's zeroing and
-// flush limit the deposit. Its windows' int32 sums are exact, but the
-// windows and the direct corners meet in the global grid by float atomics
-// in an order that changes from run to run; the plan and the gather are
-// exact and deterministic.
+// scattered reads of rows through `perm`, each window's zeroing and flush,
+// and the int64 grids' zeroing, row sums and conversion limit the deposit.
+// The fixed point that makes it repeat costs: given its plan, at the 128^3
+// path shape on an H100 80GB HBM3 at 700 W, 0.0749 ms at C = 1 (the
+// float-atomic version before it 0.0429 in the same call) and 0.1897 ms at
+// C = 3 (0.1158), with the plan 0.1276 and 0.2451 ms (0.1042 and 0.1735);
+// of some 0.074 ms, the kernel took 0.052, the zeroing of the 16.5 MB
+// scratch 0.005, the row maxima 0.004 and the conversion 0.011
+// (compare_deposits.py, torch.profiler; PERF.md section 6). The plan and
+// the gather are exact and deterministic.
 
 #include "cic_common.cuh"
 
@@ -107,6 +113,10 @@ using cic::Axis;
 using cic::BulkStage;
 using cic::device_limits;
 using cic::DeviceLimits;
+using cic::fixed_add;
+using cic::fixed_point_deposit;
+using cic::FixedScratch;
+using cic::FixedWindow;
 using cic::dispatch_gather;
 using cic::fits_int32;
 using cic::gather_particle;
@@ -117,7 +127,6 @@ using cic::make_orders;
 using cic::order_kind;
 using cic::OrderKind;
 using cic::OrderSet;
-using cic::SharedWindow;
 using cic::stageable;
 using cic::valid_orders;
 
@@ -175,59 +184,106 @@ __device__ __forceinline__ void block_run(const int64_t* __restrict__ offsets, i
   __syncthreads();
 }
 
-// Adds a window of `values` cells ((g, lx, y, t), t fastest) for tile rows
-// x0 .. to the grid; rows past the grid (the last tile's halo) are left
-// out. Every thread of the block calls it. A float window on a 16-byte-
-// aligned grid whose planes are whole groups of 4 cells is first made
-// float in place, then added by Hopper's bulk reduction (one thread issues
-// cp.reduce.async.bulk .add.f32 per component: the copy engine adds the
-// whole window in L2, with no atomic instruction issued per cell); the
-// block waits until the engine has read the window. Other windows add
-// their nonzero cells one atomicAdd each.
+// The int64 cells of an int32 window's stage, two buffers of kStageCells
+// (32 KB each) after the window (flush_window).
+constexpr int kStageCells = 4096;
+constexpr int64_t kStageBytes = 2 * kStageCells * 8;
+
+template <typename Acc>
+constexpr int64_t stage_bytes() {
+  return sizeof(Acc) == 4 ? kStageBytes : 0;
+}
+
+// Thread 0: adds `bytes` of int64 cells at `from` (shared memory) to `to`
+// (global memory) by Hopper's bulk reduction, in a bulk group of its own.
+__device__ __forceinline__ void bulk_add_u64(long long* to, const long long* from,
+                                             uint32_t bytes) {
+  const uint32_t source = static_cast<uint32_t>(__cvta_generic_to_shared(from));
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.u64 [%0], [%1], %2;\n" ::"l"(to),
+      "r"(source), "r"(bytes)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// The first `n` of a not-exact window's T values `values`, each nonzero one
+// added to int64 cell `to` + v of a grid at `scale` by fixed_add. Rare (a
+// window with non-finite rows), so kept out of line, its arguments by
+// value: the address of a kernel's local taken for a call would move it to
+// local memory for the whole kernel.
 template <typename T>
-__device__ __forceinline__ void flush_window(const SharedWindow<T>& window, T* __restrict__ grid,
-                                             int values, int window_cells, int plane,
-                                             int64_t cells, int x0, int nx) {
-  if constexpr (std::is_same<T, float>::value) {
-    if (plane % 4 == 0 && reinterpret_cast<uintptr_t>(grid) % 16 == 0) {
-      if (window.fixed) {
-        for (int q = threadIdx.x; q < values / 4; q += blockDim.x) {
-          const int4 v = reinterpret_cast<const int4*>(window.local)[q];
-          reinterpret_cast<float4*>(window.local)[q] =
-              make_float4(v.x * window.unscale, v.y * window.unscale, v.z * window.unscale,
-                          v.w * window.unscale);
-        }
+__device__ __noinline__ void flush_in_order(const T* values, long long* acc, uint32_t* poison,
+                                            int64_t to, int n, double scale) {
+  for (int v = threadIdx.x; v < n; v += blockDim.x) {
+    if (values[v] != T(0)) fixed_add(acc, poison, to + v, static_cast<double>(values[v]), scale);
+  }
+}
+
+// Adds the window, `pass` components of `window_cells` cells ((lx, y, t),
+// t fastest) for tile rows x0 .., to the int64 grids of `fixed`, the
+// first component's being grid `grid0` (b * C + c0), the rows past the
+// grid (the last tile's halo) left out. An exact window's cells are
+// converted from its scale to their grid's, rn(v * unscale_w * scale_g),
+// and where a plane holds an even number of cells (so that every int64 row
+// is 16-byte aligned) added by Hopper's bulk reduction
+// (cp.reduce.async.bulk .add.u64: the copy engine adds a run of cells in
+// L2, with no atomic instruction issued per cell), from an int64 window
+// converted in place, or from `stage` (two buffers of kStageCells) into
+// which an int32 window is converted piece by piece while the engine reads
+// the previous piece; else one atomic add per nonzero cell. A window that
+// is not exact adds each nonzero cell of its T values by fixed_add (a
+// non-finite one as its grid's poison bits; flush_in_order). Every thread
+// of the block calls it; it returns with the engine done reading shared
+// memory and the block synchronised.
+template <typename T, typename Acc>
+__device__ __forceinline__ void flush_window(const FixedWindow<T, Acc>& window, long long* stage,
+                                             const FixedScratch& fixed, int64_t grid0, int pass,
+                                             int window_cells, int plane, int64_t cells, int x0,
+                                             int nx) {
+  const int rows = min(window_cells / plane, nx - x0);
+  const int n = rows * plane;
+  const bool bulk = window.exact && plane % 2 == 0;
+  int piece = 0;  // int32 windows: pieces staged so far
+  for (int g = 0; g < pass; ++g) {
+    const double scale = fixed.scale(grid0 + g);
+    const double ratio = static_cast<double>(window.unscale) * scale;
+    Acc* local = window.local + static_cast<int64_t>(g) * window_cells;
+    long long* to = fixed.acc + (grid0 + g) * cells + static_cast<int64_t>(x0) * plane;
+    if (!window.exact) {
+      flush_in_order(reinterpret_cast<const T*>(window.local) + g * window_cells, fixed.acc,
+                     fixed.poison, to - fixed.acc, n, scale);
+    } else if (!bulk) {
+      for (int v = threadIdx.x; v < n; v += blockDim.x) {
+        if (local[v] == 0) continue;
+        atomicAdd(reinterpret_cast<unsigned long long*>(to) + v,
+                  static_cast<unsigned long long>(
+                      __double2ll_rn(static_cast<double>(local[v]) * ratio)));
       }
+    } else if constexpr (sizeof(Acc) == 8) {
+      for (int v = threadIdx.x; v < n; v += blockDim.x)
+        local[v] = __double2ll_rn(static_cast<double>(local[v]) * ratio);
       // The block's writes (generic proxy) before the copy engine's reads.
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncthreads();
-      if (threadIdx.x == 0) {
-        const int rows = min(window_cells / plane, nx - x0);
-        const uint32_t bytes = static_cast<uint32_t>(rows) * plane * sizeof(float);
-        for (int g = 0; g < values / window_cells; ++g) {
-          const uint32_t from = static_cast<uint32_t>(
-              __cvta_generic_to_shared(window.local + g * window_cells));
-          float* to = grid + g * cells + static_cast<int64_t>(x0) * plane;
-          asm volatile(
-              "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::"l"(
-                  to),
-              "r"(from), "r"(bytes)
-              : "memory");
+      if (threadIdx.x == 0) bulk_add_u64(to, local, static_cast<uint32_t>(n) * 8u);
+    } else {
+      for (int start = 0; start < n; start += kStageCells, ++piece) {
+        long long* buffer = stage + (piece & 1) * kStageCells;
+        if (piece >= 2) {  // the engine has read this buffer's last piece
+          if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+          __syncthreads();
         }
-        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        const int count = min(kStageCells, n - start);
+        for (int v = threadIdx.x; v < count; v += blockDim.x)
+          buffer[v] = __double2ll_rn(static_cast<double>(local[start + v]) * ratio);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncthreads();
+        if (threadIdx.x == 0) bulk_add_u64(to + start, buffer, static_cast<uint32_t>(count) * 8u);
       }
-      return;
     }
   }
-  for (int v = threadIdx.x; v < values; v += blockDim.x) {
-    const T value = window.read(v);
-    if (value == T(0)) continue;
-    const int g = v / window_cells;
-    const int rest = v - g * window_cells;
-    if (x0 + rest / plane >= nx) continue;  // the last tile's halo lies past the grid
-    atomicAdd(grid + g * cells + static_cast<int64_t>(x0) * plane + rest, value);
-  }
+  if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  __syncthreads();
 }
 
 // A particle of a tile whose segment is deposited straight to the global
@@ -311,46 +367,35 @@ constexpr int kCachedRows = 16;
 // particles' rows through `order` once, all kCachedRows loads in flight,
 // keeps them in registers for the window's fixed point (prepare_window's
 // S, here a block sum of the cached rows) and for the adds, so that the
-// scattered read is paid once. Ends with the adds done (not synchronised).
+// scattered read is paid once. Returns whether the window is exact: if it
+// is, with the adds done (not synchronised); if not, with the window zeroed
+// and no add done.
 template <typename Add>
-__device__ __forceinline__ void deposit_cached_rows(SharedWindow<float>& window,
+__device__ __forceinline__ bool deposit_cached_rows(FixedWindow<float, int>& window,
                                                     const float* __restrict__ pos,
                                                     const float* __restrict__ rows,
                                                     const int64_t* __restrict__ order,
                                                     int64_t first, int64_t last, int nx, int ny,
-                                                    int nt, int values, float* partial,
+                                                    int nt, int values, double* partial,
                                                     Add add) {
   float r[kCachedRows];
-  float sum = 0.0f;
+  double sum = 0.0;
+  bool finite = true;
 #pragma unroll
   for (int k = 0; k < kCachedRows; ++k) {
     const int64_t i = first + threadIdx.x + static_cast<int64_t>(k) * blockDim.x;
     r[k] = i < last ? rows[order[i]] : 0.0f;
   }
 #pragma unroll
-  for (int k = 0; k < kCachedRows; ++k) sum += fabsf(r[k]);
+  for (int k = 0; k < kCachedRows; ++k) {
+    finite = finite && isfinite(r[k]);
+    sum += fabs(static_cast<double>(r[k]));
+  }
   // The block's sum, as prepare_window takes it, with the window zeroed.
-  const int quads = values / 4;
-  for (int q = threadIdx.x; q < quads; q += blockDim.x)
-    reinterpret_cast<int4*>(window.local)[q] = make_int4(0, 0, 0, 0);
-  for (int v = quads * 4 + threadIdx.x; v < values; v += blockDim.x) window.local[v] = 0.0f;
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) sum += __shfl_down_sync(0xffffffffu, sum, d);
-  if ((threadIdx.x & 31) == 0) partial[threadIdx.x / 32] = sum;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float total = 0.0f;
-    for (int w = 0; w < static_cast<int>(blockDim.x / 32); ++w) total += partial[w];
-    partial[32] = total;
-  }
-  __syncthreads();
-  const float total = partial[32];
-  window.fixed = isfinite(total);
-  window.scale = window.unscale = 1.0f;
-  if (window.fixed && total > 0.0f) {
-    window.scale = 1073741824.0f / total;
-    window.unscale = total * (1.0f / 1073741824.0f);
-  }
+  cic::zero_shared(window.local, static_cast<int64_t>(values) * 4);
+  finite = cic::block_sum(sum, finite, partial);
+  cic::set_window_scale(window, partial[32], finite);
+  if (!window.exact) return false;
   // Positions four particles at a time, their loads in flight together.
 #pragma unroll
   for (int k0 = 0; k0 < kCachedRows; k0 += 4) {
@@ -380,6 +425,7 @@ __device__ __forceinline__ void deposit_cached_rows(SharedWindow<float>& window,
       }
     }
   }
+  return true;
 }
 
 // The x-tiled deposit. Grid (chunks, groups * batch): blockIdx.y picks the
@@ -390,22 +436,24 @@ __device__ __forceinline__ void deposit_cached_rows(SharedWindow<float>& window,
 //
 // A block walks its chunk tile by tile. A segment of one tile of at least
 // `min_window_run` particles is deposited into the tile's window (R + 1
-// rows of ny * nt cells per component), privatised in shared memory (int32
-// fixed point for float, cic_common.cuh SharedWindow), and the window's
-// cells are added to the zeroed global grid (flush_window): the halo row
-// lands in the next tile's first row there, which folds it. A shorter
-// segment, or every segment where a window does not fit (`windowed` 0),
-// adds its corners to the global grid directly: its window would cost more
-// to zero and flush than its particles' atomics.
+// rows of ny * nt cells per component), privatised in shared memory (fixed
+// point, cic_common.cuh FixedWindow: int32 for the value order set in
+// float32, else int64), and the window's cells are added to the int64
+// grids of `fixed` (flush_window): the halo row lands in the next tile's
+// first row there, which folds it. A shorter segment, or every segment
+// where a window does not fit (`windowed` 0), adds its corners to the int64
+// grids directly (fixed_add): its window would cost more to zero and flush
+// than its particles' atomics.
 template <typename T, int Kind>
 __global__ void __launch_bounds__(cic::kDepositThreads, 1)
 deposit_tiled_kernel(const T* __restrict__ sorted_pos, const T* __restrict__ rows,
                      const int64_t* __restrict__ perm, const int64_t* __restrict__ offsets,
-                     T* __restrict__ out, int64_t num_particles, int num_components, int nx,
+                     FixedScratch fixed, int64_t num_particles, int num_components, int nx,
                      int ny, int nt, int rows_per_tile, int num_tiles, int group, int windowed,
                      int64_t min_window_run, OrderSet orders) {
-  extern __shared__ __align__(16) unsigned char window_bytes[];
-  __shared__ float partial[33];
+  using Acc = cic::Accumulator<T, Kind>;
+  extern __shared__ __align__(16) unsigned char window_storage[];
+  __shared__ double partial[33];
   __shared__ int64_t chunk[3];
   const int groups = (num_components + group - 1) / group;
   const int64_t b = blockIdx.y / groups;
@@ -426,8 +474,10 @@ deposit_tiled_kernel(const T* __restrict__ sorted_pos, const T* __restrict__ row
   // The rows of component c0, order 0, of the instance.
   const T* component_rows = rows + (b * orders.count * num_components + c0) * num_particles;
   const int64_t order_stride = static_cast<int64_t>(num_components) * num_particles;
-  T* grid = out + (b * num_components + c0) * cells;
-  SharedWindow<T> window{reinterpret_cast<T*>(window_bytes)};
+  const int64_t grid0 = b * num_components + c0;
+  FixedWindow<T, Acc> window{reinterpret_cast<Acc*>(window_storage)};
+  long long* stage = reinterpret_cast<long long*>(
+      window_storage + cic::window_bytes<Acc>(static_cast<int64_t>(group) * window_cells));
   auto through_perm = [order](int64_t i) { return order[i]; };
 
   for (int t = static_cast<int>(chunk[2]); t < num_tiles && tile_start[t] < end; ++t) {
@@ -440,33 +490,50 @@ deposit_tiled_kernel(const T* __restrict__ sorted_pos, const T* __restrict__ row
           pos, component_rows, first + threadIdx.x, last, blockDim.x, through_perm,
           num_particles, order_stride, pass, nx, ny, nt, orders,
           [&](int g, int ix, int iy, int it, T value) {
-            atomicAdd(grid + g * cells + (static_cast<int64_t>(ix) * ny + iy) * nt + it, value);
+            fixed_add(fixed.acc, fixed.poison,
+                      (grid0 + g) * cells + (static_cast<int64_t>(ix) * ny + iy) * nt + it,
+                      static_cast<double>(value), fixed.scale(grid0 + g));
           });
       continue;
     }
+    // Window row lx = ix - x0 is in [0, R] for a particle of this tile.
     auto window_add = [&](int g, int ix, int iy, int it, T value) {
-      const int lx = ix - x0;  // in [0, R] for a particle of this tile
+      const int lx = ix - x0;
       if (lx >= 0 && lx <= rows_per_tile)
         window.add(g * window_cells + (lx * ny + iy) * nt + it, value);
     };
+    auto window_add_in_order = [&](int g, int ix, int iy, int it, T value) {
+      const int lx = ix - x0;
+      if (lx >= 0 && lx <= rows_per_tile)
+        window.add_in_order(g * window_cells + (lx * ny + iy) * nt + it, value);
+    };
+    bool done = false;
     if constexpr (Kind == cic::kValueOrders && std::is_same<T, float>::value) {
       if (pass == 1 && last - first <= kCachedRows * static_cast<int64_t>(blockDim.x)) {
-        deposit_cached_rows(window, pos, component_rows, order, first, last, nx, ny, nt,
-                            pass * window_cells, partial, window_add);
-        __syncthreads();
-        flush_window(window, grid, pass * window_cells, window_cells, plane, cells, x0, nx);
-        __syncthreads();  // the flush's reads are done before the next zeroing
-        continue;
+        done = deposit_cached_rows(window, pos, component_rows, order, first, last, nx, ny, nt,
+                                   pass * window_cells, partial, window_add);
+        if (!done && threadIdx.x == 0)
+          cic::deposit_particles<T, Kind>(pos, component_rows, first, last, 1, through_perm,
+                                          num_particles, order_stride, pass, nx, ny, nt, orders,
+                                          window_add_in_order);
+        done = true;
       }
     }
-    cic::prepare_window<Kind>(window, pass * window_cells, component_rows, first + threadIdx.x,
-                              last, blockDim.x, through_perm, num_particles, pass, partial);
-    cic::deposit_particles<T, Kind>(pos, component_rows, first + threadIdx.x, last, blockDim.x,
-                                    through_perm, num_particles, order_stride, pass, nx, ny, nt,
-                                    orders, window_add);
+    if (!done) {
+      cic::prepare_window(window, pass * window_cells, component_rows, first + threadIdx.x,
+                          last, blockDim.x, through_perm, num_particles, order_stride,
+                          orders.count, pass, partial);
+      if (window.exact)
+        cic::deposit_particles<T, Kind>(pos, component_rows, first + threadIdx.x, last,
+                                        blockDim.x, through_perm, num_particles, order_stride,
+                                        pass, nx, ny, nt, orders, window_add);
+      else if (threadIdx.x == 0)
+        cic::deposit_particles<T, Kind>(pos, component_rows, first, last, 1, through_perm,
+                                        num_particles, order_stride, pass, nx, ny, nt, orders,
+                                        window_add_in_order);
+    }
     __syncthreads();
-    flush_window(window, grid, pass * window_cells, window_cells, plane, cells, x0, nx);
-    __syncthreads();  // the flush's reads are done before the next zeroing
+    flush_window(window, stage, fixed, grid0, pass, window_cells, plane, cells, x0, nx);
   }
 }
 
@@ -941,17 +1008,18 @@ unsigned int max_runs(int64_t num_particles, int num_tiles, int64_t per_run) {
 
 template <typename T, int Kind>
 cudaError_t deposit_tiled_launch(const T* sorted_pos, const T* rows, const int64_t* perm,
-                                 const int64_t* offsets, T* out, int64_t batch,
-                                 int64_t num_particles, int num_components, int nx, int ny,
-                                 int nt, int rows_per_tile, int num_tiles, int64_t per_run,
-                                 int group, int64_t min_window_run, const OrderSet& set,
-                                 cudaStream_t stream) {
+                                 const int64_t* offsets, const FixedScratch& fixed,
+                                 int64_t batch, int64_t num_particles, int num_components, int nx,
+                                 int ny, int nt, int rows_per_tile, int num_tiles,
+                                 int64_t per_run, int group, int64_t min_window_run,
+                                 const OrderSet& set, cudaStream_t stream) {
+  using Acc = cic::Accumulator<T, Kind>;
   DeviceLimits limits;
   cudaError_t status = device_limits(&limits);
   if (status != cudaSuccess) return status;
-  const int64_t window_bytes =
-      static_cast<int64_t>(sizeof(T)) * group * (rows_per_tile + 1) * ny * nt;
-  const bool windowed = window_bytes <= limits.staging;
+  const int64_t shared = cic::window_bytes<Acc>(
+      static_cast<int64_t>(group) * (rows_per_tile + 1) * ny * nt, stage_bytes<Acc>());
+  const bool windowed = shared <= limits.staging;
   const int groups = (num_components + group - 1) / group;
   const int64_t chunks = (num_particles + per_run - 1) / per_run;
   if (groups * batch > 65535 || chunks > INT32_MAX) return cudaErrorInvalidValue;
@@ -960,23 +1028,25 @@ cudaError_t deposit_tiled_launch(const T* sorted_pos, const T* rows, const int64
   status = allow_staging(kernel, limits, configured);
   if (status != cudaSuccess) return status;
   const dim3 grid(static_cast<unsigned int>(chunks), static_cast<unsigned int>(groups * batch));
-  kernel<<<grid, cic::kDepositThreads, windowed ? window_bytes : 0, stream>>>(
-      sorted_pos, rows, perm, offsets, out, num_particles, num_components, nx, ny, nt,
+  kernel<<<grid, cic::kDepositThreads, windowed ? shared : 0, stream>>>(
+      sorted_pos, rows, perm, offsets, fixed, num_particles, num_components, nx, ny, nt,
       rows_per_tile, num_tiles, group, windowed ? 1 : 0, min_window_run, set);
   return cudaGetLastError();
 }
 
-// The deposit's launch, sized by ops/cic_tiled.py tiled_deposit_geometry:
+// The deposit's launches, sized by ops/cic_tiled.py tiled_deposit_geometry:
 // `group` components a block, N / per_run chunks of the sorted particles,
 // windows for tile segments of `min_window_run` particles or more where the
-// window fits shared memory; else every corner is added to the global grid
-// directly. `out` is zeroed by the caller.
+// window (and, for an int32 window, its stage) fits shared memory; else
+// every corner is added to the int64 grids directly. The int64 grids are
+// carved from `scratch` (`scratch_bytes` of it; cic_common.cuh
+// FixedScratch), which this zeroes; `out` is written from them.
 template <typename T>
 int deposit_tiled(const void* sorted_pos, const void* rows, const void* perm,
-                  const void* offsets, void* out, int64_t batch, int64_t num_particles,
-                  int num_components, int nx, int ny, int nt, int rows_per_tile, int num_tiles,
-                  int64_t per_run, int group, int64_t min_window_run, const int* orders,
-                  int num_orders, void* stream) {
+                  const void* offsets, void* out, void* scratch, int64_t scratch_bytes,
+                  int64_t batch, int64_t num_particles, int num_components, int nx, int ny,
+                  int nt, int rows_per_tile, int num_tiles, int64_t per_run, int group,
+                  int64_t min_window_run, const int* orders, int num_orders, void* stream) {
   if (!valid_orders(orders, num_orders) || rows_per_tile < 1 || num_tiles < 1 ||
       per_run < 1 || group < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -985,16 +1055,18 @@ int deposit_tiled(const void* sorted_pos, const void* rows, const void* perm,
   const T* r = static_cast<const T*>(rows);
   const int64_t* pe = static_cast<const int64_t*>(perm);
   const int64_t* off = static_cast<const int64_t*>(offsets);
-  T* o = static_cast<T*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      order_kind(orders, num_orders) == cic::kValueOrders
-          ? deposit_tiled_launch<T, cic::kValueOrders>(
-                p, r, pe, off, o, batch, num_particles, num_components, nx, ny, nt,
-                rows_per_tile, num_tiles, per_run, group, min_window_run, set, s)
-          : deposit_tiled_launch<T, cic::kGenericOrders>(
-                p, r, pe, off, o, batch, num_particles, num_components, nx, ny, nt,
-                rows_per_tile, num_tiles, per_run, group, min_window_run, set, s));
+  const bool value = order_kind(orders, num_orders) == cic::kValueOrders;
+  return static_cast<int>(fixed_point_deposit(
+      r, scratch, scratch_bytes, static_cast<T*>(out), batch, num_particles, num_components,
+      num_orders, static_cast<int64_t>(nx) * ny * nt, s, [&](const FixedScratch& fixed) {
+        return value ? deposit_tiled_launch<T, cic::kValueOrders>(
+                           p, r, pe, off, fixed, batch, num_particles, num_components, nx, ny,
+                           nt, rows_per_tile, num_tiles, per_run, group, min_window_run, set, s)
+                     : deposit_tiled_launch<T, cic::kGenericOrders>(
+                           p, r, pe, off, fixed, batch, num_particles, num_components, nx, ny,
+                           nt, rows_per_tile, num_tiles, per_run, group, min_window_run, set, s);
+      }));
 }
 
 template <typename T>
@@ -1145,25 +1217,25 @@ extern "C" {
 int cic_device_limits(int device, int* out) { return cic::limits_of_device(device, out); }
 
 int cic_deposit_tiled_f32(const void* sorted_pos, const void* rows, const void* perm,
-                          const void* offsets, void* out, int64_t batch,
-                          int64_t num_particles, int num_components, int nx, int ny, int nt,
-                          int rows_per_tile, int num_tiles, int64_t per_run, int group,
-                          int64_t min_window_run, const int* orders, int num_orders,
+                          const void* offsets, void* out, void* scratch, int64_t scratch_bytes,
+                          int64_t batch, int64_t num_particles, int num_components, int nx,
+                          int ny, int nt, int rows_per_tile, int num_tiles, int64_t per_run,
+                          int group, int64_t min_window_run, const int* orders, int num_orders,
                           void* stream) {
-  return deposit_tiled<float>(sorted_pos, rows, perm, offsets, out, batch, num_particles,
-                          num_components, nx, ny, nt, rows_per_tile, num_tiles, per_run, group,
-                          min_window_run, orders, num_orders, stream);
+  return deposit_tiled<float>(sorted_pos, rows, perm, offsets, out, scratch, scratch_bytes, batch,
+                           num_particles, num_components, nx, ny, nt, rows_per_tile, num_tiles,
+                           per_run, group, min_window_run, orders, num_orders, stream);
 }
 
 int cic_deposit_tiled_f64(const void* sorted_pos, const void* rows, const void* perm,
-                          const void* offsets, void* out, int64_t batch,
-                          int64_t num_particles, int num_components, int nx, int ny, int nt,
-                          int rows_per_tile, int num_tiles, int64_t per_run, int group,
-                          int64_t min_window_run, const int* orders, int num_orders,
+                          const void* offsets, void* out, void* scratch, int64_t scratch_bytes,
+                          int64_t batch, int64_t num_particles, int num_components, int nx,
+                          int ny, int nt, int rows_per_tile, int num_tiles, int64_t per_run,
+                          int group, int64_t min_window_run, const int* orders, int num_orders,
                           void* stream) {
-  return deposit_tiled<double>(sorted_pos, rows, perm, offsets, out, batch, num_particles,
-                          num_components, nx, ny, nt, rows_per_tile, num_tiles, per_run, group,
-                          min_window_run, orders, num_orders, stream);
+  return deposit_tiled<double>(sorted_pos, rows, perm, offsets, out, scratch, scratch_bytes, batch,
+                           num_particles, num_components, nx, ny, nt, rows_per_tile, num_tiles,
+                           per_run, group, min_window_run, orders, num_orders, stream);
 }
 
 int cic_gather_tiled_f32(const void* grids, const void* sorted_pos, const void* rank,

@@ -87,7 +87,7 @@ def orders_argument(orders: tuple[tuple[int, int, int], ...]) -> tuple[ctypes.c_
 
 
 # ---------------------------------------------------------------------------
-# Launch geometry of the privatised deposits (csrc/cic_common.cuh)
+# Launch geometry and scratch of the fixed-point deposits (csrc/cic_common.cuh)
 # ---------------------------------------------------------------------------
 
 #: Threads of a deposit block (``kDepositThreads`` in cic_common.cuh).
@@ -103,6 +103,32 @@ MAX_WINDOW_PARTICLES = 16384
 #: Shared memory the card reserves per block beside what a kernel asks for,
 #: plus the deposit kernels' static shared memory.
 _BLOCK_RESERVE = 1024 + 64
+#: Bytes after an int32 window of the tiled deposit in which its cells are
+#: converted to int64 for the bulk reduction (``kStageBytes`` in
+#: cic_tiled.cu: two buffers of 4096 int64 cells).
+STAGE_BYTES = 2 * 4096 * 8
+
+
+def accumulator_bytes(dtype: torch.dtype, orders: Orders) -> int:
+    """Bytes of one cell of a deposit's window in shared memory: 4 (int32
+    fixed point) for the value order set in float32, else 8 (int64)."""
+    return 4 if dtype == torch.float32 and check_orders(orders) == VALUE else 8
+
+
+def window_bytes(values: int, accumulator: int, stage: int = 0) -> int:
+    """Shared memory of a window of ``values`` cells of ``accumulator``
+    bytes, rounded up to 16 bytes, plus ``stage`` bytes (``window_bytes`` in
+    cic_common.cuh)."""
+    return -(-values * accumulator // 16) * 16 + stage
+
+
+def fixed_scratch_bytes(grids: int, cells: int) -> int:
+    """Bytes of the scratch of a deposit into int64 global grids
+    (``FixedScratch`` in cic_common.cuh): ``grids`` grids of ``cells`` int64
+    cells, their poison bits (2 bits a cell) and each grid's largest |row|,
+    in 8-byte words."""
+    values = grids * cells
+    return 8 * (values + -(-values // 32) + grids)
 
 
 class DeviceLimits(NamedTuple):
@@ -130,12 +156,18 @@ def device_limits(library, device: torch.device) -> DeviceLimits:
     return limits
 
 
-def components_per_block(values: int, itemsize: int, components: int, budget: int) -> int:
-    """How many of ``components`` windows of ``values`` values each one
-    deposit block holds in ``budget`` bytes of shared memory (at most all
-    of them); 0 where not even one fits, and the deposit takes global
-    atomics instead."""
-    return min(components, budget // (values * itemsize))
+def components_per_block(
+    values: int, accumulator: int, components: int, budget: int, stage: int = 0
+) -> int:
+    """How many of ``components`` windows of ``values`` cells each one
+    deposit block holds, in one window of ``accumulator``-byte cells
+    (:func:`window_bytes`, with ``stage`` bytes after it), in ``budget``
+    bytes of shared memory (at most all of them); 0 where not even one
+    fits, and the deposit adds to int64 grids in global memory instead."""
+    group = min(components, max(0, budget - stage) // (values * accumulator))
+    while group and window_bytes(group * values, accumulator, stage) > budget:
+        group -= 1
+    return group
 
 
 def resident_blocks(shared: int, limits: DeviceLimits) -> int:

@@ -6,8 +6,9 @@ x-tiled pair, and the autograd closure (counterpart of
 The untiled kernels are in ``cheetah_tpu_torch/csrc/cic.cu``; the note there
 says which TPU kernel each one replaces and what bounds it on the card. The
 deposit privatises the grid in shared memory where a component fits a
-block (:func:`untiled_deposit_geometry`), else adds to it with global
-atomics. The
+block (:func:`untiled_deposit_geometry`), else adds to int64 grids in
+global memory; both add in fixed point, so that a deposit gives the same
+bits on every run, as the JAX package's do. The
 source is compiled with ``nvcc`` for ``sm_90a`` into a shared library with a
 plain C interface at first use, into ``cheetah_tpu_torch/build/``, and loaded
 with ``ctypes``.
@@ -92,8 +93,8 @@ _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 LIBRARY = CudaLibrary(
     "cic.cu",
     {
-        "cic_deposit_multi": [_P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I32, _I32, _I32,
-                              _P, _I32, _P],
+        "cic_deposit_multi": [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32, _I32, _I32,
+                              _I32, _P, _I32, _P],
         "cic_gather_multi": [_P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I32, _P, _I32, _P],
     },
     untyped={"cic_device_limits": [_I32, _P]},
@@ -157,7 +158,8 @@ def uses_tiled(histogram_shape) -> bool:
 class UntiledDepositGeometry(NamedTuple):
     """The privatised untiled deposit's launch (``deposit_private_kernel``):
     ``group`` components a block, ``copies`` copies of them per instance
-    and group, each block taking ``shared`` bytes of shared memory."""
+    and group, each block taking ``shared`` bytes of shared memory (its
+    window, :func:`~cheetah_tpu_torch.ops.cic_common.window_bytes`)."""
 
     group: int
     copies: int
@@ -166,25 +168,27 @@ class UntiledDepositGeometry(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def untiled_deposit_geometry(
-    batch: int, components: int, num_particles: int, cells: int, itemsize: int,
+    batch: int, components: int, num_particles: int, cells: int, accumulator: int,
     limits: cic_common.DeviceLimits,
 ) -> UntiledDepositGeometry | None:
-    """The privatised deposit's launch for a call, or ``None`` where not
-    one grid component fits a block's shared memory (64^3 in float32 is 1
-    MB) or the (group, instance) pairs pass the grid's y dimension: then
-    ``deposit_multi_kernel`` adds to the zeroed grid with global atomics.
+    """The privatised deposit's launch for a call whose window cells take
+    ``accumulator`` bytes (:func:`~cheetah_tpu_torch.ops.cic_common.accumulator_bytes`),
+    or ``None`` where not one grid component fits a block's shared memory
+    (64^3 in int32 is 1 MB, 32^3 in int64 256 KB) or the (group, instance)
+    pairs pass the grid's y dimension: then ``deposit_multi_kernel`` adds
+    to int64 grids in global memory.
     As many copies as fill the card with resident blocks
     (:func:`~cheetah_tpu_torch.ops.cic_common.window_blocks`: whole waves
     of them, so that no copy takes more than
     :data:`~cheetah_tpu_torch.ops.cic_common.MAX_WINDOW_PARTICLES`), and at
     most one per :data:`MIN_COPY_PARTICLES` particles."""
-    group = cic_common.components_per_block(cells, itemsize, components, limits.budget)
+    group = cic_common.components_per_block(cells, accumulator, components, limits.budget)
     if group == 0:
         return None
     groups = -(-components // group)
     if groups * batch > 65535:
         return None
-    shared = group * cells * itemsize
+    shared = cic_common.window_bytes(group * cells, accumulator)
     blocks = cic_common.window_blocks(batch * groups * num_particles, limits, shared)
     copies = max(
         1,
@@ -210,11 +214,12 @@ def _deposit_plain(normalized, rows, histogram_shape, orders_flat) -> torch.Tens
 def _deposit_kernel(normalized, rows, histogram_shape, orders_flat) -> torch.Tensor:
     """``cic_deposit_multi`` on CUDA tensors: ``deposit_private_kernel``
     where :func:`untiled_deposit_geometry` finds a launch (its copies summed
-    by ``deposit_reduce_kernel``), else ``deposit_multi_kernel``; shared- or
-    global-memory atomics, so the sum order, and with it the last bits,
-    change from run to run. Counts its launch in
-    ``deposit_multi_3d.launches``."""
+    by ``deposit_reduce_kernel`` in a fixed order), else
+    ``deposit_multi_kernel`` into int64 grids in a scratch allocated here;
+    every add in fixed point, so the same inputs give the same bits on
+    every run. Counts its launch in ``deposit_multi_3d.launches``."""
     batch, _, num_components, num_particles = rows.shape
+    orders = orders_from_flat(orders_flat)
     normalized = normalized.contiguous()
     rows = rows.contiguous()
     shape = (batch, num_components, *histogram_shape)
@@ -222,15 +227,17 @@ def _deposit_kernel(normalized, rows, histogram_shape, orders_flat) -> torch.Ten
         return torch.zeros(shape, dtype=rows.dtype, device=rows.device)
     cells = math.prod(histogram_shape)
     geometry = untiled_deposit_geometry(
-        batch, num_components, num_particles, cells, rows.element_size(),
+        batch, num_components, num_particles, cells,
+        cic_common.accumulator_bytes(rows.dtype, orders),
         cic_common.device_limits(LIBRARY, rows.device),
     )
+    out = torch.empty(shape, dtype=rows.dtype, device=rows.device)
     scratch = None
     if geometry is None:
-        out = torch.zeros(shape, dtype=rows.dtype, device=rows.device)
         group, copies = 0, 1
+        scratch = torch.empty(cic_common.fixed_scratch_bytes(batch * num_components, cells) // 8,
+                              dtype=torch.int64, device=rows.device)
     else:
-        out = torch.empty(shape, dtype=rows.dtype, device=rows.device)
         group, copies, _ = geometry
         if copies > 1:
             scratch = torch.empty(batch * num_components * copies * cells, dtype=rows.dtype,
@@ -239,8 +246,9 @@ def _deposit_kernel(normalized, rows, histogram_shape, orders_flat) -> torch.Ten
         "cic_deposit_multi", rows.dtype, rows.device,
         normalized.data_ptr(), rows.data_ptr(), out.data_ptr(),
         0 if scratch is None else scratch.data_ptr(),
+        0 if scratch is None else scratch.numel() * scratch.element_size(),
         batch, num_particles, num_components, *histogram_shape, group, copies,
-        *orders_argument(orders_from_flat(orders_flat)),
+        *orders_argument(orders),
     )
     deposit_multi_3d.launches += 1
     return out

@@ -46,10 +46,11 @@ particles at 128^3; PERF.md):
   of about equal work, one block each (:func:`tiled_deposit_geometry` sizes
   them): a tile's segment of a chunk is added into the tile's window in
   shared memory (int32 fixed point for the value order set, since Hopper
-  has no shared-memory float add) and the window into the grid by one bulk
-  reduction, or, for a sparse tile, straight to the grid. Shared-memory
-  atomics and the windows' zeroing and flush bound it (0.043 ms for the
-  kernel given its plan; 0.129 ms for the first port's).
+  has no shared-memory float add) and the window into int64 grids by bulk
+  reductions, or, for a sparse tile, straight to those grids; a last pass
+  writes the output from them. Every add is an integer add, so the
+  deposit gives the same bits on every run. Shared-memory atomics and the
+  windows' zeroing and flush bound it (PERF.md).
 - One plan per autograd node: :class:`~cheetah_tpu_torch.ops.cic_kernels.GatherMulti`
   and :class:`~cheetah_tpu_torch.ops.cic_kernels.DepositMulti` make the plan
   of their positions once, in forward, and hand it (``plan=``) to every
@@ -66,8 +67,8 @@ untiled pair is (:mod:`cheetah_tpu_torch.ops.cic_kernels`):
 (:data:`GATHER_TILED`), the last two taking the plan's tensors. CPU tensors
 run the plain versions, CUDA tensors launch the kernels or raise, fake
 tensors get the outputs' shapes; the plan's count scratch, sized from the
-particle count, stays inside the CUDA implementation, and ``R`` and ``T``
-are Python ints of the static grid. Each CUDA implementation counts its
+particle count, and the deposit's int64 grids stay inside the CUDA
+implementations, and ``R`` and ``T`` are Python ints of the static grid. Each CUDA implementation counts its
 launches in its wrapper's ``launches``; :func:`tile_plan` counts its calls
 in ``calls``.
 """
@@ -87,8 +88,8 @@ _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 LIBRARY = CudaLibrary(
     "cic_tiled.cu",
     {
-        "cic_deposit_tiled": [_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I32,
-                              _I32, _I32, _I64, _I32, _I64, _P, _I32, _P],
+        "cic_deposit_tiled": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32,
+                              _I32, _I32, _I32, _I64, _I32, _I64, _P, _I32, _P],
         "cic_gather_tiled": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I32,
                              _I32, _I32, _I64, _P, _I32, _P],
         "cic_tile_plan": [_P, _P, _I64, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _P],
@@ -306,8 +307,9 @@ class TiledDepositGeometry(NamedTuple):
     components a block; ``ceil(N / per_run)`` chunks of the sorted
     particles, one a block (the kernel weighs their bounds by cost); a
     window only for a tile's segment of ``min_window_run`` particles or
-    more; ``shared`` bytes a block (0: no window fits, every corner is added
-    to the global grid)."""
+    more; ``shared`` bytes a block (its windows and, for int32 windows,
+    their stage; 0: no window fits, every corner is added to the int64
+    grids in global memory)."""
 
     group: int
     per_run: int
@@ -317,17 +319,24 @@ class TiledDepositGeometry(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def tiled_deposit_geometry(
-    batch: int, components: int, num_particles: int, window_cells: int, itemsize: int,
+    batch: int, components: int, num_particles: int, window_cells: int, accumulator: int,
     limits: cic_common.DeviceLimits,
 ) -> TiledDepositGeometry:
-    """The x-tiled deposit's launch for a call. A block holds the windows
-    of ``window_cells`` cells of as many components as fit its shared
-    memory; where not one fits, the kernel runs without windows, all
-    components a block. There are as many chunks as fill the card with
-    resident blocks (:func:`~cheetah_tpu_torch.ops.cic_common.window_blocks`;
-    at least :data:`MIN_DEPOSIT_RUN` particles a chunk on average)."""
-    group = cic_common.components_per_block(window_cells, itemsize, components, limits.budget)
-    shared = group * window_cells * itemsize
+    """The x-tiled deposit's launch for a call whose window cells take
+    ``accumulator`` bytes (:func:`~cheetah_tpu_torch.ops.cic_common.accumulator_bytes`).
+    A block holds the windows of ``window_cells`` cells of as many
+    components as fit its shared memory, with the stage that an int32
+    window is flushed through
+    (:data:`~cheetah_tpu_torch.ops.cic_common.STAGE_BYTES`); where not one
+    fits, the kernel runs without windows, all components a block. There
+    are as many chunks as fill the card with resident blocks
+    (:func:`~cheetah_tpu_torch.ops.cic_common.window_blocks`; at least
+    :data:`MIN_DEPOSIT_RUN` particles a chunk on average)."""
+    stage = cic_common.STAGE_BYTES if accumulator == 4 else 0
+    group = cic_common.components_per_block(
+        window_cells, accumulator, components, limits.budget, stage
+    )
+    shared = cic_common.window_bytes(group * window_cells, accumulator, stage) if group else 0
     group = group or components
     groups = -(-components // group)
     blocks = cic_common.window_blocks(batch * groups * num_particles, limits, shared)
@@ -437,29 +446,35 @@ def _deposit_plain(normalized, rows, histogram_shape, orders_flat, *plan) -> tor
 
 def _deposit_kernel(normalized, rows, histogram_shape, orders_flat, *plan) -> torch.Tensor:
     """``cic_deposit_tiled`` on CUDA tensors: ``deposit_tiled_kernel`` on the
-    plan's sorted positions, sized by :func:`tiled_deposit_geometry` (atomic
-    adds, so the last bits change from run to run). Counts its launch in
+    plan's sorted positions, sized by :func:`tiled_deposit_geometry`, into
+    int64 grids in a scratch allocated here, every add in fixed point, so
+    the same inputs give the same bits on every run. Counts its launch in
     ``deposit_multi_tiled_3d.launches``."""
     plan = _given_plan(histogram_shape, *plan)
+    orders = cic_common.orders_from_flat(orders_flat)
     batch, _, num_components, num_particles = rows.shape
-    out = torch.zeros(
-        (batch, num_components, *histogram_shape), dtype=rows.dtype, device=rows.device
-    )
+    shape = (batch, num_components, *histogram_shape)
     if batch * num_particles * num_components == 0:
-        return out
+        return torch.zeros(shape, dtype=rows.dtype, device=rows.device)
+    out = torch.empty(shape, dtype=rows.dtype, device=rows.device)
     rows = rows.contiguous()
-    _, ny, nt = histogram_shape
+    nx, ny, nt = histogram_shape
     geometry = tiled_deposit_geometry(
         batch, num_components, num_particles, (plan.rows_per_tile + 1) * ny * nt,
-        rows.element_size(), cic_common.device_limits(LIBRARY, rows.device),
+        cic_common.accumulator_bytes(rows.dtype, orders),
+        cic_common.device_limits(LIBRARY, rows.device),
+    )
+    scratch = torch.empty(
+        cic_common.fixed_scratch_bytes(batch * num_components, nx * ny * nt) // 8,
+        dtype=torch.int64, device=rows.device,
     )
     LIBRARY.launch(
         "cic_deposit_tiled", rows.dtype, rows.device,
         plan.sorted_positions.data_ptr(), rows.data_ptr(), plan.perm.data_ptr(),
-        plan.offsets.data_ptr(), out.data_ptr(), batch, num_particles, num_components,
+        plan.offsets.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        scratch.numel() * scratch.element_size(), batch, num_particles, num_components,
         *histogram_shape, plan.rows_per_tile, plan.num_tiles, geometry.per_run,
-        geometry.group, geometry.min_window_run,
-        *cic_common.orders_argument(cic_common.orders_from_flat(orders_flat)),
+        geometry.group, geometry.min_window_run, *cic_common.orders_argument(orders),
     )
     deposit_multi_tiled_3d.launches += 1
     return out

@@ -13,9 +13,11 @@ Any other dimension (the screen's 2D image, 1D profiles) takes the JAX
 package's ``_deposit_scatter``: the cell-centre bin space ``(pos - left) /
 ((right - left) / nb) - 0.5``, charges outside the extent masked, each of
 the ``2^d`` corners clamped to the grid and masked where it falls off it,
-and one ``index_add_`` over ``batch * num_cells``. Its gradient reaches the
-positions through the corner fractions and the charges through the
-weights, as ``index_add_`` is differentiable in its source. The JAX
+and one sum over ``batch * num_cells`` (:func:`fixed_point_index_add`,
+which gives the same bits on every run, as the JAX package's
+``segment_sum`` does, where a float ``index_add`` on CUDA adds in an order
+that changes from run to run). Its gradient reaches the positions through
+the corner fractions and the charges through the weights. The JAX
 package's two other 2D deposits, the tensor-product matmul
 (``_deposit_tensor_product``) and the bounding-box window
 (``_deposit_tiled_2d``), compute the same function on the TPU's matrix
@@ -32,6 +34,65 @@ import torch
 
 from cheetah_tpu_torch.ops import cic_kernels
 from cheetah_tpu_torch.utils.device import constant_cache
+from cheetah_tpu_torch.utils.maths import presigned
+
+
+def _fixed_point_sum(index: torch.Tensor, source: torch.Tensor, size: int) -> torch.Tensor:
+    """``zeros(size).index_add(0, index, source)`` summed as int64 fixed
+    point: each finite value rounded to a multiple of 2^(floor(log2 S) -
+    61), where S is the sum of the finite |source| (so that no sum passes
+    2^62), the integers summed, the sums converted back once. A term rounds
+    by at most S * 2^-62. Integer sums do not depend on their order, and
+    the non-finite values, summed apart as floats among zeros, make their
+    cells +inf, -inf or NaN whatever the order."""
+    finite = torch.isfinite(source)
+    magnitude = torch.where(finite, source, torch.zeros_like(source)).abs().double().sum()
+    _, exponent = torch.frexp(magnitude)  # magnitude = m * 2^exponent, 0.5 <= m < 1
+    scale = torch.where(magnitude > 0, torch.ldexp(torch.ones_like(magnitude), 62 - exponent),
+                        torch.ones_like(magnitude))
+    fixed = torch.round(torch.where(finite, source.double(), 0.0) * scale).to(torch.int64)
+    sums = torch.zeros(size, dtype=torch.int64, device=source.device).index_add(0, index, fixed)
+    poison = torch.zeros(size, dtype=source.dtype, device=source.device).index_add(
+        0, index, torch.where(finite, torch.zeros_like(source), source)
+    )
+    return (sums.double() / scale).to(source.dtype) + poison
+
+
+@presigned
+class _FixedPointIndexAdd(torch.autograd.Function):
+    """:func:`fixed_point_index_add` with the gradients of ``index_add``:
+    the source's is the output's gradient at ``index``."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(index, source, size):
+        return _fixed_point_sum(index, source, size)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        index, _, size = inputs
+        ctx.size = size
+        ctx.save_for_backward(index)
+        ctx.save_for_forward(index)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (index,) = ctx.saved_tensors
+        return None, grad.index_select(0, index), None
+
+    @staticmethod
+    def jvp(ctx, index_dot, source_dot, size_dot):
+        (index,) = ctx.saved_tensors
+        return _fixed_point_sum(index, source_dot, ctx.size)
+
+
+def fixed_point_index_add(index: torch.Tensor, source: torch.Tensor, size: int) -> torch.Tensor:
+    """``zeros(size).index_add(0, index, source)`` for 1-D ``index`` and
+    ``source``, summed in int64 fixed point (``_fixed_point_sum``), so that
+    the same inputs give the same bits on every run and device; differentiable
+    in ``source``."""
+    return _FixedPointIndexAdd.apply(index, source, size)
 
 
 
@@ -130,7 +191,8 @@ def _deposit_scatter(
     histogram_shape: list[int],
     extent: torch.Tensor,
 ) -> torch.Tensor:
-    """CIC deposit as one ``index_add_`` over every instance's cells.
+    """CIC deposit as one sum over every instance's cells
+    (:func:`fixed_point_index_add`).
 
     :param positions: ``(B, N, d)``.
     :param charges: ``(B, N)``.
@@ -172,7 +234,6 @@ def _deposit_scatter(
         all_ids.append(corner_idx)
         all_weights.append(corner_weight)
 
-    flat = torch.zeros(batch * num_cells, dtype=positions.dtype, device=positions.device)
-    flat = flat.index_add(0, torch.cat(all_ids, dim=-1).reshape(-1),
-                          torch.cat(all_weights, dim=-1).reshape(-1))
+    flat = fixed_point_index_add(torch.cat(all_ids, dim=-1).reshape(-1),
+                                 torch.cat(all_weights, dim=-1).reshape(-1), batch * num_cells)
     return flat.reshape(batch, *histogram_shape)

@@ -75,6 +75,13 @@ versions, its launches those of eager tracking and its kicks those of
 eager tracking within the kick tolerance, with export, loaded, eager and
 graph times; the segment exported on the CPU and moved to the card; and
 the host's time per operator call against its CUDA implementation's.
+The twelfth slice makes every deposit repeat bit for bit: the
+``determinism`` phase (after the kernel checks) runs every deposit route
+three times on identical inputs and holds the bits equal, and every
+screen reading twice; the space-charge line's gradient must not move
+between runs, ``track_checkpointed`` must equal ``track``, the sharded
+kick the unsharded one and the loaded program eager tracking, all bit for
+bit.
 Every phase prints one JSON line. The last line is
 ``{"ok": true, "device": {...}}``; any failed check raises, so the script
 exits non-zero and prints no such line. It imports neither JAX nor the JAX
@@ -110,6 +117,7 @@ ALL_ORDERS = tuple(itertools.product((0, 1), repeat=3))
 SEED = 0
 #: The order sets the paths ask the gather for (the forward kick; the
 #: raised set of both backward passes), with their component counts.
+VALUE = ((0, 0, 0),)
 RAISED = ((1, 0, 0), (0, 1, 0), (0, 0, 1))
 PATH_ORDER_SETS = [("value_c3", ((0, 0, 0),), 3), ("raised_c3", RAISED, 3),
                    ("raised_c1", RAISED, 1)]
@@ -117,16 +125,34 @@ PATH_ORDER_SETS = [("value_c3", ((0, 0, 0),), 3), ("raised_c3", RAISED, 3),
 # Tolerances of the kernels against their plain versions on the card, as a
 # fraction of max|output|. The gather sums 8 corner terms per output in the
 # same order as its plain version; only FMA contraction differs, a few ulps.
-# The deposit adds ~N * 8 / cells (~250 at 32^3) terms per cell with
-# atomics in an order that changes from run to run, as does index_add_ in
-# the plain version; sqrt(250) * eps * max|term| stays well below 1e-5 of
-# max|output|, and K * eps * max|term| (the worst case) near it. At the
-# value order set in float32 the privatised deposits add in int32 fixed
-# point, each term rounded by at most 2^-17 of the largest row (16384
-# particles a copy, csrc/cic_common.cuh); random roundings over K terms
-# stay below 1e-4 of max|output| even where signed rows cancel in a cell.
+# The deposit adds ~N * 8 / cells (~250 at 32^3) terms per cell in fixed
+# point (csrc/cic_common.cuh), the plain version with index_add_ in float:
+# sqrt(250) * eps * max|term| stays well below 1e-5 of max|output|, and
+# K * eps * max|term| (the worst case) near it. Where a window holds int32
+# (the value order set in float32) each term rounds by at most 2^-17 of the
+# largest row (16384 particles a copy or chunk); random roundings over K
+# terms stay below 1e-4 of max|output| even where signed rows cancel in a
+# cell. Elsewhere a term rounds by at most S 2^-61, S = N M (N particles, M
+# the largest |row| of its instance and component), far below float32's
+# rounding.
 GATHER_TOLERANCE = 1e-5
 DEPOSIT_TOLERANCE = 1e-4
+# The determinism phase: every deposit route DETERMINISM_RUNS times on
+# identical inputs, the outputs' bits equal. The grids of the kernel checks
+# and of _deposit_route's routes: 16^3 (privatised int64 windows beside
+# 32^3's int32 in float32), 32^3, 64^3 (int64 grids in global memory) and
+# the tiled checks' grids, each in float32 and float64, B 1 and 4, the
+# value and raised order sets, C 1 and 3, on the tiled checks' Gaussian
+# beam (with particles off the grid and non-finite) and the crowded beam.
+# A float64 deposit of the value order set is also held to its bound
+# against the plain version: each of a cell's K terms rounds by at most
+# S 2^-61 (S = N M, N particles and M the largest |row| of its instance and
+# component: an int64 grid's scale is within a factor 4 of 2^62 / S, a
+# window's finer), twice where a window is rescaled to its grid, and both
+# sums round in float64 by at most K 2^-53 times the cell's sum of |terms|
+# A: 2 K S 2^-61 + 2 K 2^-53 A, with K and A the largest over the cells.
+DETERMINISM_RUNS = 3
+DETERMINISM_SHAPES = [(16, 16, 16), (32, 32, 32), (64, 64, 64)]
 # The card (float32) against the port on the CPU (float64): sigma_x of the
 # env step to rtol 1e-4 (a 13-matrix product and a raw-moment variance over
 # 10k particles in float32, ~1e-6 expected); the space-charge kicks to an RMS
@@ -256,17 +282,16 @@ BPM_READING_TOLERANCE = 1e-4
 # cold uniform beam doubles in sigma_x, sigma_y and sigma_tau over the line
 # within the JAX package's tolerance (``tests/test_space_charge.py:88-96``)
 # on 32^3; on 128^3 the beam fills about one particle a cell and the ratio
-# is printed, not checked. track_checkpointed's gradient against track's:
-# the deposits it runs again add in another order where their float
-# atomics do, so float32 agrees to 1e-5 or to twice the spread of track's
-# own gradient over 5 runs, whichever is larger, and float64 to 1e-10. The
-# cold beam's sum(px^2) by the first drift's length is a cancelling sum
-# over particles of ~1e-15 momenta: on 128^3, where the tiled deposit adds
-# with float atomics, track's own float32 gradient spread 1.7e-3 to 3.0e-3
-# between runs (PERF.md), so 1e-5 alone cannot hold there.
+# is printed, not checked. Every deposit adds in fixed point, so the line
+# gives the same bits on every run: track's gradient spreads by exactly 0
+# over 5 runs, and track_checkpointed, which runs the same operations on
+# the same values again, equals track bit for bit in float32 and float64.
+# (The cold beam's sum(px^2) by the first drift's length is a cancelling
+# sum over particles of ~1e-15 momenta: while the tiled deposit added with
+# float atomics, track's own float32 gradient on 128^3 spread by 1.7e-3 to
+# 3.0e-3 between runs, PERF.md.)
 SC_LINE_KICKS = 10
 SC_LINE_DOUBLING_RTOL = 2e-2
-SC_LINE_CHECKPOINT_RTOL = {torch.float32: 1e-5, torch.float64: 1e-10}
 # The multi-device slice. BASELINE config 5's env: 4096 instances of the
 # five ARES EA tunables, settings from numpy (k1 in +-20, angles in
 # +-1e-3 rad). env.step against segment.track with the same settings
@@ -427,7 +452,7 @@ KERNEL_FAMILIES = {
     "gather": ("gather_multi_kernel", "gather_staged_kernel", "gather_tiled_kernel",
                "gather_tiled_staged_kernel", "unsort_kernel"),
     "deposit": ("deposit_multi_kernel", "deposit_private_kernel", "deposit_reduce_kernel",
-                "deposit_tiled_kernel"),
+                "deposit_tiled_kernel", "row_max_kernel", "fixed_to_output_kernel"),
     "plan": ("plan_count_kernel", "plan_scan_kernel", "plan_scatter_kernel"),
 }
 
@@ -609,26 +634,29 @@ def _crowded_positions(generator, batch, shape, dtype, count=NUM_PARTICLES):
     return torch.floor(n / 2) - 1 + 2 * jitter
 
 
-def _deposit_route(cic_kernels, cic_tiled, shape, dtype, batch, components) -> str:
+def _deposit_route(cic_kernels, cic_tiled, shape, dtype, batch, components,
+                   orders=((0, 0, 0),)) -> str:
     """Which kernel a deposit of this call launches, as the wrappers choose
-    it: the privatised untiled kernel with its copies, the global-atomic
-    untiled kernel, or the x-tiled kernel with its chunk length, with or
-    without windows."""
+    it: the privatised untiled kernel with its copies and its windows'
+    fixed point (int32 or int64), the untiled kernel into int64 grids in
+    global memory, or the x-tiled kernel with its chunk length, with int32
+    or int64 windows or without windows."""
     from cheetah_tpu_torch.ops import cic_common
 
-    itemsize = torch.empty((), dtype=dtype).element_size()
+    accumulator = cic_common.accumulator_bytes(dtype, orders)
+    fixed = f"int{8 * accumulator}"
     limits = cic_common.device_limits(cic_kernels.LIBRARY, torch.device("cuda"))
     if cic_kernels.uses_tiled(shape):
         window = (cic_tiled.rows_per_tile(shape) + 1) * shape[1] * shape[2]
-        g = cic_tiled.tiled_deposit_geometry(batch, components, NUM_PARTICLES, window, itemsize,
-                                             limits)
-        windows = "windows" if g.shared else "no windows"
+        g = cic_tiled.tiled_deposit_geometry(batch, components, NUM_PARTICLES, window,
+                                             accumulator, limits)
+        windows = f"{fixed} windows" if g.shared else "no windows"
         return f"tiled group={g.group} per_run={g.per_run} {windows}"
     g = cic_kernels.untiled_deposit_geometry(batch, components, NUM_PARTICLES,
-                                             shape[0] * shape[1] * shape[2], itemsize, limits)
+                                             shape[0] * shape[1] * shape[2], accumulator, limits)
     if g is None:
-        return "untiled global atomics"
-    return f"untiled private group={g.group} copies={g.copies}"
+        return "untiled global int64"
+    return f"untiled private {fixed} group={g.group} copies={g.copies}"
 
 
 def _crowded_deposit_errors(cic_kernels, cic_tiled, generator) -> list:
@@ -654,7 +682,8 @@ def _crowded_deposit_errors(cic_kernels, cic_tiled, generator) -> list:
             results.append({
                 "grid": list(shape), "dtype": str(dtype).removeprefix("torch."),
                 "orders": len(orders), "components": components, "rel_err": error,
-                "route": _deposit_route(cic_kernels, cic_tiled, shape, dtype, 1, components),
+                "route": _deposit_route(cic_kernels, cic_tiled, shape, dtype, 1, components,
+                                        orders),
             })
             check(error <= DEPOSIT_TOLERANCE, f"crowded deposit {results[-1]}: error {error}")
         del normalized, rows, got, want
@@ -757,7 +786,8 @@ def phase_kernels(cic_kernels) -> dict:
             batch=batch, grid=list(shape), particles=NUM_PARTICLES, orders=orders,
             dtype=str(dtype).removeprefix("torch."),
             deposit_rel_err=deposit_error, deposit_ms=ms_deposit,
-            deposit_route=_deposit_route(cic_kernels, cic_kernels.cic_tiled, shape, dtype, batch, 1),
+            deposit_route=_deposit_route(cic_kernels, cic_kernels.cic_tiled, shape, dtype, batch,
+                                         1, ALL_ORDERS),
             deposit_bound_ms=bound(deposit_bytes, batch * NUM_PARTICLES * 8 * 5 * orders)[0],
             gather_components=3, gather_rel_err=gather_error, gather_ms=ms_gather,
             gather_path_sets_rel_err=path_sets_error,
@@ -803,6 +833,7 @@ def phase_kernels(cic_kernels) -> dict:
     deposit_c3 = _deposit_c3(cic_kernels.deposit_multi_3d, cic_kernels.deposit_multi_3d_reference,
                              generator, positions, shape)
     deposit_c3["route"] = _deposit_route(cic_kernels, cic_kernels.cic_tiled, shape, f32, 1, 3)
+    global_route = _global_route(cic_kernels, generator)
 
     nodes = _beam_positions(generator, shape, 0.0, f32)
     grids = torch.randn((1, 3, *shape), generator=generator, dtype=f32, device="cuda")
@@ -845,7 +876,7 @@ def phase_kernels(cic_kernels) -> dict:
         deposit={"ms": deposit_ms, "eager_ms": deposit_eager_ms, "plain_ms": deposit_plain_ms,
                  "bound_ms": deposit_bound[0], "max_abs_err": deposit_abs, "rel_err": deposit_rel,
                  "route": _deposit_route(cic_kernels, cic_kernels.cic_tiled, shape, f32, 1, 1)},
-        deposit_c3=deposit_c3,
+        deposit_c3=deposit_c3, deposit_global_route=global_route,
         gather={"ms": gather_ms, "eager_ms": gather_eager_ms, "plain_ms": gather_plain_ms,
                 "bound_ms": gather_bound[0], "library_ms": gather_library_ms,
                 "library_eager_ms": gather_library_eager_ms, "grid_sample_rel_diff": library_rel,
@@ -857,6 +888,7 @@ def phase_kernels(cic_kernels) -> dict:
             ms=deposit_ms, eager_ms=deposit_eager_ms, plain_ms=deposit_plain_ms,
             bound_ms=deposit_bound[0], bound_by=deposit_bound[1], library_ms=None,
             max_abs_err=deposit_abs, c3_ms=deposit_c3["ms"], c3_bound_ms=deposit_c3["bound_ms"],
+            global_route=global_route,
         ),
         "gather": dict(
             ms=gather_ms, eager_ms=gather_eager_ms, plain_ms=gather_plain_ms,
@@ -864,6 +896,46 @@ def phase_kernels(cic_kernels) -> dict:
             max_abs_err=gather_abs,
         ),
     }
+
+
+def _global_route(cic_kernels, generator) -> dict:
+    """The untiled deposit's route into int64 grids in global memory
+    (``deposit_multi_kernel``) at the value order on 1M particles of a
+    Gaussian beam: 64^3 in float32 (C = 1, the kick of phase_space_charge,
+    and C = 3) and 32^3 in float64 (C = 1, the float64 checks of the
+    gradients), each against its plain version, timed, with its bound:
+    positions and rows read once, the grids written once."""
+    results = {}
+    for side, dtype, components in ((64, torch.float32, 1), (64, torch.float32, 3),
+                                    (32, torch.float64, 1)):
+        shape = (side, side, side)
+        size = torch.empty((), dtype=dtype).element_size()
+        positions = _beam_positions(generator, shape, -0.5, dtype)
+        rows = torch.rand((1, 1, components, NUM_PARTICLES), generator=generator, dtype=dtype,
+                          device="cuda")
+
+        def deposit():
+            return cic_kernels.deposit_multi_3d(positions, rows, shape, VALUE)
+
+        absolute, rel = relative_error(
+            deposit(), cic_kernels.deposit_multi_3d_reference(positions, rows, shape, VALUE)
+        )
+        label = f"{side}^3_{str(dtype).removeprefix('torch.')}_c{components}"
+        check(rel <= DEPOSIT_TOLERANCE, f"{label}: deposit error {rel}")
+        results[label] = {
+            "route": _deposit_route(cic_kernels, cic_kernels.cic_tiled, shape, dtype, 1,
+                                    components),
+            "ms": graph_ms(deposit), "eager_ms": time_ms(deposit, per_event=10),
+            "plain_ms": time_ms(
+                lambda: cic_kernels.deposit_multi_3d_reference(positions, rows, shape, VALUE),
+                per_event=10,
+            ),
+            "bound_ms": bound(NUM_PARTICLES * (3 + components) * size
+                              + components * side**3 * size,
+                              NUM_PARTICLES * 8 * 5 * components)[0],
+            "max_abs_err": absolute, "rel_err": rel,
+        }
+    return results
 
 
 def _deposit_c3(deposit, plain, generator, positions, shape, **plan) -> dict:
@@ -1110,7 +1182,8 @@ def phase_kernels_tiled(cic_kernels, cic_tiled) -> dict:
             batch=batch, grid=list(shape), particles=NUM_PARTICLES, orders=len(ALL_ORDERS),
             dtype=str(dtype).removeprefix("torch."),
             rows_per_tile=cic_tiled.rows_per_tile(shape), plan_equals_tile_plan=plan_equal,
-            deposit_route=_deposit_route(cic_kernels, cic_tiled, shape, dtype, batch, 1),
+            deposit_route=_deposit_route(cic_kernels, cic_tiled, shape, dtype, batch, 1,
+                                         ALL_ORDERS),
             deposit_rel_err=deposit_error, deposit_rel_diff_untiled=deposit_untiled,
             gather_components=3, gather_rel_err=gather_error,
             gather_rel_diff_untiled=gather_untiled,
@@ -1272,6 +1345,150 @@ def phase_kernels_tiled(cic_kernels, cic_tiled) -> dict:
             library_ms=gather["library_ms"], max_abs_err=gather_abs,
         ),
     }
+
+
+def deposit_repeats(cic_kernels, runs: int = DETERMINISM_RUNS):
+    """Every deposit route ``runs`` times on identical inputs (the grids of
+    DETERMINISM_SHAPES and TILED_SHAPES, float32 and float64, the tiled
+    checks' Gaussian beam for B = 1 and 4 and the crowded beam, the value
+    and raised order sets, C = 1 and 3), through ``deposit_multi_3d`` as a
+    path calls it. Yields each case's description with ``bits_equal``
+    (every run's output bit for bit the first's), its inputs and its first
+    output."""
+    generator = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    for shape in [*DETERMINISM_SHAPES, *TILED_SHAPES]:
+        for dtype in (torch.float32, torch.float64):
+            beams = (("gaussian", _tiled_check_positions(generator, 1, shape, dtype)),
+                     ("gaussian", _tiled_check_positions(generator, 4, shape, dtype)),
+                     ("crowded", _crowded_positions(generator, 1, shape, dtype)))
+            for beam, normalized in beams:
+                for orders, components in itertools.product((VALUE, RAISED), (1, 3)):
+                    rows = torch.randn((normalized.shape[0], len(orders), components,
+                                        NUM_PARTICLES), generator=generator, dtype=dtype,
+                                       device="cuda")
+                    outs = [cic_kernels.deposit_multi_3d(normalized, rows, shape, orders)
+                            for _ in range(runs)]
+                    first = _bits(outs[0])
+                    case = {"grid": list(shape), "dtype": str(dtype).removeprefix("torch."),
+                            "beam": beam, "batch": normalized.shape[0],
+                            "orders": "value" if orders == VALUE else "raised",
+                            "components": components,
+                            "bits_equal": all(torch.equal(_bits(out), first) for out in outs)}
+                    yield case, normalized, rows, orders, outs[0]
+                    del outs, first, rows
+            del beams, normalized
+
+
+def _float64_bound(cic_common, normalized, rows, shape) -> float:
+    """The float64 value-order deposit's bound against its plain version
+    (DETERMINISM_SHAPES' note): 2 K S 2^-61 + 2 K 2^-53 A."""
+    counts = torch.zeros(normalized.shape[0] * math.prod(shape), dtype=torch.int64,
+                         device="cuda")
+    base = torch.arange(normalized.shape[0], device="cuda")[:, None] * math.prod(shape)
+    for cell, valid, _ in cic_common._corner_terms(normalized, shape, VALUE):
+        counts += torch.bincount((base + cell)[valid], minlength=counts.numel())
+    terms = int(counts.max())
+    bound = rows.shape[-1] * rows.abs().max().item()
+    cell_sum = cic_common.deposit_cells(normalized, rows.abs(), shape, VALUE,
+                                        math.prod(shape)).max().item()
+    return 2 * terms * bound * 2.0**-61 + 2 * terms * 2.0**-53 * cell_sum
+
+
+def _screen_repeats(ctt) -> list:
+    """Each screen reading of phase_screen_readings taken twice on the same
+    beam: whether the two images are equal bit for bit."""
+    beam = _bench_beam(ctt, 100_000, "cuda", torch.Generator(device="cuda").manual_seed(SEED))
+    results = []
+    for method, binning in SCREEN_CASES:
+        segment = _screen_segment(torch.float32, "cuda", method, binning)
+        first, second = _read_screen(segment, beam), _read_screen(segment, beam)
+        results.append({"method": method, "binning": binning,
+                        "bits_equal": torch.equal(_bits(first), _bits(second))})
+    return results
+
+
+def _nonfinite_row_cases(cic_kernels, cic_tiled) -> list:
+    """Deposits whose rows hold NaN, +inf and -inf, on a particle off the
+    grid and on particles in the beam's core, on each route (the exact
+    windows give way to their in-order float path, the int64 grids mark
+    poison bits): the cells that are NaN and infinite equal the plain
+    version's, the finite ones within DEPOSIT_TOLERANCE, and two runs equal
+    bit for bit."""
+    generator = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    results = []
+    for shape, dtype in (((32, 32, 32), torch.float32), ((16, 16, 16), torch.float64),
+                         ((64, 64, 64), torch.float32), ((128, 128, 128), torch.float32),
+                         ((128, 128, 128), torch.float64)):
+        normalized = _beam_positions(generator, shape, -0.5, dtype)
+        rows = torch.rand((1, 1, 1, NUM_PARTICLES), generator=generator, dtype=dtype,
+                          device="cuda")
+        rows[0, 0, 0, :4] = torch.tensor([float("nan"), float("inf"), -float("inf"),
+                                          float("inf")], dtype=dtype)
+        normalized[0, 3] = -5.0  # the last +inf row's particle lies off the grid
+        first, second = (cic_kernels.deposit_multi_3d(normalized, rows, shape, VALUE)
+                         for _ in range(2))
+        want = cic_kernels.deposit_multi_3d_reference(normalized, rows, shape, VALUE)
+        finite = torch.isfinite(want)
+        case = {
+            "grid": list(shape), "dtype": str(dtype).removeprefix("torch."),
+            "route": _deposit_route(cic_kernels, cic_tiled, shape, dtype, 1, 1),
+            "bits_equal": torch.equal(_bits(first), _bits(second)),
+            "non_finite_equal": torch.equal(torch.isnan(first), torch.isnan(want))
+            and torch.equal(torch.isposinf(first), torch.isposinf(want))
+            and torch.equal(torch.isneginf(first), torch.isneginf(want)),
+            "non_finite_cells": int((~finite).sum()),
+            "rel_err": relative_error(first[finite], want[finite])[1],
+        }
+        results.append(case)
+    return results
+
+
+def phase_determinism(ctt, cic_kernels, cic_tiled) -> None:
+    """Every deposit route, DETERMINISM_RUNS times on identical inputs
+    (:func:`deposit_repeats`), each output bit for bit the first; each
+    against its plain version within DEPOSIT_TOLERANCE, and in float64 at
+    the value order set within its stated bound (:func:`_float64_bound`).
+    Then every screen reading twice, bit for bit, and the deposits of
+    non-finite rows (:func:`_nonfinite_row_cases`). One line per grid and
+    dtype, then the checks, so that a tree whose deposits do not repeat
+    shows every case before it fails."""
+    from cheetah_tpu_torch.ops import cic_common
+
+    start = time.perf_counter()
+    cases, lines = [], {}
+    for case, normalized, rows, orders, out in deposit_repeats(cic_kernels):
+        shape, dtype = tuple(case["grid"]), out.dtype
+        want = cic_kernels.deposit_multi_3d_reference(normalized, rows, shape, orders)
+        absolute, case["rel_err"] = relative_error(out, want)
+        if dtype == torch.float64 and orders == VALUE:
+            case["f64_bound"] = _float64_bound(cic_common, normalized, rows, shape)
+            case["f64_abs_err"] = absolute
+        case["route"] = _deposit_route(cic_kernels, cic_tiled, shape, dtype, case["batch"],
+                                       case["components"], orders)
+        cases.append(case)
+        lines.setdefault((shape, case["dtype"]), []).append(case)
+        del want
+    for (shape, dtype), grid_cases in lines.items():
+        emit("determinism", grid=list(shape), dtype=dtype, runs=DETERMINISM_RUNS,
+             particles=NUM_PARTICLES, cases=[{k: v for k, v in case.items()
+                                               if k not in ("grid", "dtype")}
+                                              for case in grid_cases])
+    screens = _screen_repeats(ctt)
+    nonfinite = _nonfinite_row_cases(cic_kernels, cic_tiled)
+    repeated = sum(case["bits_equal"] for case in cases)
+    emit("determinism_summary", deposit_cases=len(cases), repeated_bit_for_bit=repeated,
+         routes=sorted({case["route"] for case in cases}), screens=screens,
+         non_finite_rows=nonfinite, seconds=time.perf_counter() - start)
+    check(repeated == len(cases),
+          f"{len(cases) - repeated} of {len(cases)} deposit cases differ between runs")
+    check(all(screen["bits_equal"] for screen in screens), f"screens differ: {screens}")
+    for case in nonfinite:
+        check(case["bits_equal"] and case["non_finite_equal"] and case["non_finite_cells"] > 0
+              and case["rel_err"] <= DEPOSIT_TOLERANCE, f"deposit of non-finite rows {case}")
+    for case in cases:
+        check(case["rel_err"] <= DEPOSIT_TOLERANCE, f"deposit {case}: off its plain version")
+        check(case.get("f64_abs_err", 0.0) <= case.get("f64_bound", 0.0),
+              f"deposit {case}: past its float64 bound")
 
 
 def phase_gather_order_sets(cic_kernels, cic_tiled) -> dict:
@@ -2324,7 +2541,8 @@ def phase_sc_line(ctt, wrappers, grid_shape, uses_tiled: bool) -> dict:
     sum(px^2) by the first drift's length through ``track`` and through
     ``track_checkpointed`` (launches forward, backward and in the recompute;
     the two gradients against each other in float32 and float64 on the card,
-    beside the spread of ``track``'s own gradient over runs), peak memory at
+    bit for bit, beside ``track``'s own gradient over 5 runs, which must not
+    move), peak memory at
     2 and 10 kicks both ways, CUDA-event and CUDA-graph times and profiles.
     Returns the launches of the checkpointed value_and_grad."""
     label = f"sc_line_{grid_shape[0]}"
@@ -2383,7 +2601,6 @@ def phase_sc_line(ctt, wrappers, grid_shape, uses_tiled: bool) -> dict:
         for _ in range(4)
     ]
     spread = (max(repeats) - min(repeats)) / abs(statistics.mean(repeats))
-    f32_diff = abs(grads["track_checkpointed"] - grads["track"]) / abs(grads["track"])
 
     _, line64 = _cold_line(ctt, kicks, grid_shape, torch.float64)
     beam64 = beam.to(dtype=torch.float64)
@@ -2392,7 +2609,6 @@ def phase_sc_line(ctt, wrappers, grid_shape, uses_tiled: bool) -> dict:
         for method in ("track", "track_checkpointed")
     }
     del line64, beam64
-    f64_diff = abs(grads64["track_checkpointed"] - grads64["track"]) / abs(grads64["track"])
 
     peak_mb = {}
     for count in (2, kicks):
@@ -2425,18 +2641,21 @@ def phase_sc_line(ctt, wrappers, grid_shape, uses_tiled: bool) -> dict:
         plan_entries=len(plan), plan_head=plan[:3], doubling_ratios=ratios,
         doubling_checked=not uses_tiled, launches=launches, recompute_launches=recompute,
         grad_track=grads["track"], grad_checkpointed=grads["track_checkpointed"],
-        grad_rel_diff_f32=f32_diff, track_grad_run_spread_f32=spread,
+        track_grad_runs_f32=repeats, track_grad_run_spread_f32=spread,
         grad_track_f64=grads64["track"], grad_checkpointed_f64=grads64["track_checkpointed"],
-        grad_rel_diff_f64=f64_diff, peak_mib=peak_mb, peak_mib_per_kick=per_kick_mb,
+        peak_mib=peak_mb, peak_mib_per_kick=per_kick_mb,
         timings=timings,
     )
     if not uses_tiled:
         for name, ratio in ratios.items():
             check(abs(ratio - 2.0) / 2.0 <= SC_LINE_DOUBLING_RTOL, f"{label}: {name} grew {ratio}x")
-    check(f32_diff <= max(SC_LINE_CHECKPOINT_RTOL[torch.float32], 2 * spread),
-          f"{label}: checkpointed f32 gradient off by {f32_diff} (track's spread {spread})")
-    check(f64_diff <= SC_LINE_CHECKPOINT_RTOL[torch.float64],
-          f"{label}: checkpointed f64 gradient off by {f64_diff}")
+    check(spread == 0.0, f"{label}: track's f32 gradient differs between runs: {repeats}")
+    check(grads["track_checkpointed"] == grads["track"],
+          f"{label}: checkpointed f32 gradient {grads['track_checkpointed']}, track's "
+          f"{grads['track']}")
+    check(grads64["track_checkpointed"] == grads64["track"],
+          f"{label}: checkpointed f64 gradient {grads64['track_checkpointed']}, track's "
+          f"{grads64['track']}")
     return {
         name: launches["track_checkpointed"]["forward"][name]
         + launches["track_checkpointed"]["backward"][name]
@@ -2623,7 +2842,7 @@ def _value_and_grad_launches(wrappers, segment, beam):
 def phase_sc_sharded(ctt, parallel, wrappers, grid_shape) -> dict:
     """``SpaceChargeKick(particle_axis="particles")`` on the NCCL process
     group of one rank, where the all-reduces really launch: the 1M bench
-    beam's kick against the unsharded kick; the space-charge segment's
+    beam's kick against the unsharded kick, bit for bit; the space-charge segment's
     value_and_grad with both kicks sharded, its launches equal to the
     unsharded segment's and its gradient equal within section 2's limits
     in f32 and f64; the audit's bytes (the moment sums and the grid, per
@@ -2644,6 +2863,8 @@ def phase_sc_sharded(ctt, parallel, wrappers, grid_shape) -> dict:
     reference = ctt.SpaceChargeKick(0.2, grid_shape=grid_shape, dtype=torch.float32).track(beam)
     check(kick_launches == _launches(wrappers), f"{label}: the sharded kick launched {kick_launches}")
     kick_errors = _check_kicks(label, beam, out, reference.to("cpu", torch.float64))
+    kick_bit_for_bit = torch.equal(_bits(out.particles), _bits(reference.particles))
+    check(kick_bit_for_bit, f"{label}: the sharded kick differs from the unsharded one")
     del out, reference
 
     results = {}
@@ -2685,7 +2906,8 @@ def phase_sc_sharded(ctt, parallel, wrappers, grid_shape) -> dict:
         label,
         particles=NUM_PARTICLES, grid=list(grid_shape), backend=str(torch.distributed.get_backend()),
         world_size=torch.distributed.get_world_size(),
-        kick_rms_rel_err_vs_unsharded=kick_errors, kick_launches=kick_launches,
+        kick_rms_rel_err_vs_unsharded=kick_errors, kick_bit_for_bit=kick_bit_for_bit,
+        kick_launches=kick_launches,
         grad_f32=f32["grad"], grad_f32_unsharded=f32["grad_unsharded"],
         grad_f32_rel_diff=f32["grad_rel_diff"], value_f32_rel_diff=f32["value_rel_diff"],
         grad_f64_rel_diff=f64["grad_rel_diff"], launches=f32["launches"],
@@ -3294,9 +3516,10 @@ def phase_deploy_space_charge(ctt, wrappers, cic_kernels, cic_tiled) -> dict:
     """The space-charge segment (two kicks) exported by ``torch.export``
     from a 1M-particle float32 beam, the particle axis symbolic, on the
     32^3 grid (the untiled pair) and on 128^3 (the x-tiled pair and its
-    plans); saved, loaded, and called at 1M and 100k particles: its kicks
-    against eager ``segment.track`` of the same beam within
-    ``KICK_RMS_TOLERANCE``, its launches equal to eager tracking's, no plan
+    plans); saved, loaded, and called at 1M and 100k particles: its
+    particles equal to eager ``segment.track``'s of the same beam bit for
+    bit (and its kicks within ``KICK_RMS_TOLERANCE``), its launches equal to
+    eager tracking's, no plan
     by ``torch.sort``, its graph holding the ``cheetah_tpu_torch``
     operators and none of the plain versions' operators; the export's
     seconds, the loaded program's CUDA-event and graph ms against eager
@@ -3358,11 +3581,14 @@ def phase_deploy_space_charge(ctt, wrappers, cic_kernels, cic_tiled) -> dict:
             errors = _check_kick_particles(
                 f"{label} at {num_particles}", other.particles.cpu().double(), got, want
             )
+            check(torch.equal(_bits(got), _bits(want)),
+                  f"{label} at {num_particles}: the loaded program's particles differ from eager")
             # Loaded, eager, loaded again: the host's load drifts during a run.
             loaded_ms = time_ms(lambda: program(*arguments), runs=10)
             eager_ms = time_ms(lambda: segment.track(other), runs=10)
             runs[num_particles] = {
-                "kick_rms_rel_err_vs_eager": errors, "launches": loaded,
+                "kick_rms_rel_err_vs_eager": errors, "bit_for_bit_vs_eager": True,
+                "launches": loaded,
                 "loaded_ms": loaded_ms, "eager_track_ms": eager_ms,
                 "loaded_again_ms": time_ms(lambda: program(*arguments), runs=10),
                 "loaded_graph_ms": graph_ms(lambda: program(*arguments), runs=10),
@@ -3429,6 +3655,7 @@ def main() -> int:
     emit("deposit_crowded", particles=NUM_PARTICLES, cells=8,
          cases=_crowded_deposit_errors(cic_kernels, cic_tiled,
                                        torch.Generator(device="cuda").manual_seed(SEED + 5)))
+    phase_determinism(ctt, cic_kernels, cic_tiled)
     phase_gather_order_sets(cic_kernels, cic_tiled)
     phase_autograd_kernels(cic_kernels, wrappers)
     phase_env_step(ctt, wrappers)

@@ -11,7 +11,8 @@ sigma, at the deposit's cell-centre convention, and random float32 rows
 from a seed, as ``chip_smoke.py`` does, and times, at the value order with
 C = 1 (the charge, forward) and C = 3 (the force gradients, backward):
 
-- ``cic_kernels.deposit_multi_3d`` at 32^3 and 64^3 (the untiled kernel);
+- ``cic_kernels.deposit_multi_3d`` at 32^3 and 64^3 (the untiled kernel),
+  and at 32^3 in float64 (``32^3_f64``, its route into global memory);
 - at 128^3, ``cic_tiled.deposit_multi_tiled_3d`` making its plan
   (``tiled``) and given the plan made before (``tiled_kernel``), and the
   untiled kernel on the same inputs (``untiled``, C = 1 only).
@@ -84,6 +85,19 @@ def worker(root: str) -> None:
                     torch, lambda: cic_kernels._deposit_untiled(positions, rows, shape, VALUE)
                 )
         result[f"{side}^3"] = timed
+    shape = (32, 32, 32)
+    n = torch.tensor(shape, dtype=torch.float64, device="cuda")
+    gauss = torch.randn((1, NUM_PARTICLES, 3), generator=generator, dtype=torch.float64,
+                        device="cuda")
+    positions = n / 2 - 0.5 + gauss * n / 6
+    timed = {}
+    for components in (1, 3):
+        rows = torch.randn((1, 1, components, NUM_PARTICLES), generator=generator,
+                           dtype=torch.float64, device="cuda")
+        timed[f"c{components}"] = _methods(
+            torch, lambda: cic_kernels.deposit_multi_3d(positions, rows, shape, VALUE)
+        )
+    result["32^3_f64"] = timed
     print(json.dumps(result), flush=True)
 
 
@@ -109,7 +123,7 @@ def main() -> int:
     for _ in range(args.rounds):
         for root in (args.old, args.new, args.new, args.old):
             out = subprocess.run(
-                [sys.executable, __file__, root, root, "--worker"],
+                [sys.executable, os.path.abspath(__file__), root, root, "--worker"],
                 capture_output=True, text=True, timeout=600, cwd=root,
             )
             if out.returncode != 0:

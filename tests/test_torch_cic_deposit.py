@@ -97,8 +97,8 @@ def test_deposit_reference_matches_pallas_at_the_backward_shape(pair, orders, be
 # Launch geometry
 # ---------------------------------------------------------------------------
 
-# (values per window, itemsize, components) -> components a block holds:
-# the path's grids and windows and the checks' routes.
+# (values per window, accumulator bytes, components) -> components a block
+# holds: the path's grids and windows and the checks' routes.
 PER_BLOCK_CASES = {
     "32^3_f32_c1": ((32**3, 4, 1), 1), "32^3_f32_c3": ((32**3, 4, 3), 1),
     "32^3_f64_c3": ((32**3, 8, 3), 0), "64^3_f32_c1": ((64**3, 4, 1), 0),
@@ -116,9 +116,9 @@ def test_components_per_block_fill_the_budget(case):
     budget = H100_LIMITS.budget
     group = cic_common.components_per_block(values, itemsize, components, budget)
     assert group == expected
-    assert group * values * itemsize <= budget
+    assert cic_common.window_bytes(group * values, itemsize) <= budget
     # As many as fit.
-    assert group == components or (group + 1) * values * itemsize > budget
+    assert group == components or cic_common.window_bytes((group + 1) * values, itemsize) > budget
 
 
 def test_resident_blocks_count_what_an_sm_holds():
@@ -166,7 +166,7 @@ def test_untiled_geometry_fills_the_card_within_budget(case):
         assert geometry is None
         return
     assert geometry.group == group
-    assert geometry.shared == group * cells * itemsize <= H100_LIMITS.budget
+    assert geometry.shared == cic_common.window_bytes(group * cells, itemsize) <= H100_LIMITS.budget
     groups = -(-components // group)
     blocks = geometry.copies * groups * batch
     allowed = cic_common.window_blocks(batch * groups * num_particles, H100_LIMITS,
@@ -203,13 +203,17 @@ def test_tiled_geometry_sizes_chunks_and_windows_within_budget(case):
     group, per_run, min_window_run, shared = cic_tiled.tiled_deposit_geometry(
         batch, components, num_particles, window, itemsize, H100_LIMITS
     )
-    # As many windows as fit a block's shared memory, or none, and then one
-    # block takes every component.
-    fits = cic_common.components_per_block(window, itemsize, components, H100_LIMITS.budget)
+    # As many windows as fit a block's shared memory beside an int32
+    # window's stage, or none, and then one block takes every component.
+    stage = cic_common.STAGE_BYTES if itemsize == 4 else 0
+    fits = cic_common.components_per_block(window, itemsize, components, H100_LIMITS.budget,
+                                           stage)
     if fits == 0:
         assert (group, shared) == (components, 0)
     else:
-        assert group == fits and shared == group * window * itemsize <= H100_LIMITS.budget
+        assert group == fits
+        assert shared == cic_common.window_bytes(group * window, itemsize, stage)
+        assert shared <= H100_LIMITS.budget
     assert cic_tiled.MIN_DEPOSIT_RUN <= per_run <= cic_common.MAX_WINDOW_PARTICLES
     # Chunks, one a block, as many as whole waves of resident blocks allow
     # (one more per instance and group for the ragged end).
@@ -236,7 +240,9 @@ def test_card_paths_pass_the_geometry(monkeypatch, case):
     """The deposits' card paths (their operators' CUDA implementations) on
     the ``meta`` device, their launches intercepted: each passes the geometry the wrapper computed, allocates
     the untiled scratch of (B, C, copies, cells) values when it has several
-    copies, and zeroes its output only where global atomics add into it."""
+    copies and the int64 grids' scratch (``fixed_scratch_bytes``) where it
+    adds into them, passes the scratch's size, and zeroes nothing itself
+    (the kernels zero their scratch and write every output cell)."""
     shapes = {"32^3": (32, 32, 32), "64^3": (64, 64, 64), "128^3": (128, 128, 128),
               "8x256x512": (8, 256, 512)}
     shape = shapes[case.split("_")[0]]
@@ -276,16 +282,19 @@ def test_card_paths_pass_the_geometry(monkeypatch, case):
             1, components, num_particles, window, itemsize, H100_LIMITS
         )
         # The C entry point's order: per_run, group, min_window_run.
-        assert args[13:16] == (geometry.per_run, geometry.group, geometry.min_window_run)
-        assert zeros, "the tiled deposit adds into a zeroed grid"
+        assert args[15:18] == (geometry.per_run, geometry.group, geometry.min_window_run)
+        assert args[6] == cic_common.fixed_scratch_bytes(components, math.prod(shape))
+        assert not zeros
         return
     assert name == "cic_deposit_multi"
     geometry = cic_kernels.untiled_deposit_geometry(
         1, components, num_particles, math.prod(shape), itemsize, H100_LIMITS
     )
-    group, copies = args[10:12]
+    group, copies = args[11:13]
+    assert not zeros and isinstance(args[3], int)
     if geometry is None:
-        assert (group, copies, args[3]) == (0, 1, 0) and zeros
+        assert (group, copies) == (0, 1)
+        assert args[4] == cic_common.fixed_scratch_bytes(components, math.prod(shape))
     else:
-        assert (group, copies) == geometry[:2] and copies > 1 and not zeros
-        assert isinstance(args[3], int)
+        assert (group, copies) == geometry[:2] and copies > 1
+        assert args[4] == components * copies * math.prod(shape) * itemsize
