@@ -415,7 +415,7 @@ class Segment(Element):
             if len(pending) == 1:
                 beam = pending[0]._track(beam)
             elif pending:
-                beam = Segment(list(pending), sanitize_name=False)._track(beam)
+                beam = _run(pending)._track(beam)
             pending.clear()
             return beam
 
@@ -530,11 +530,11 @@ class Segment(Element):
                 run.append(element)
                 continue
             if run:
-                todos.append(Segment(run, sanitize_name=False))
+                todos.append(_run(run))
                 run = []
             todos.append(element)
         if run:
-            todos.append(Segment(run, sanitize_name=False))
+            todos.append(_run(run))
         return self._fuse_second_order_brackets(todos)
 
     @staticmethod
@@ -836,6 +836,15 @@ def _contains_active_observer(element: Element) -> bool:
     if isinstance(element, Superimposed):
         return _contains_active_observer(element._segment())
     return _is_active_observer(element)
+
+
+def _run(elements: list[Element]) -> Segment:
+    """A run of elements that tracking builds and throws away (a plan's
+    fused run, the stretch between two observers). It takes a fixed name
+    instead of a generated one: a name drawn from the element counter would
+    change the counter on every call, and a compiled step would be traced
+    anew on every call."""
+    return Segment(list(elements), name="fused_run", sanitize_name=False)
 
 
 class _SecondOrderBracket(Element):

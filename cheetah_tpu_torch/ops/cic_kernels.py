@@ -646,6 +646,7 @@ class DepositMulti(torch.autograd.Function):
         return _unfold(out, size), 0
 
 
+@torch.compiler.allow_in_graph
 def differentiable_gather(
     grids: torch.Tensor, normalized: torch.Tensor, orders: Orders = VALUE
 ) -> tuple[torch.Tensor, ...]:
@@ -654,6 +655,7 @@ def differentiable_gather(
     return GatherMulti.apply(grids, normalized, orders, _PlanSlot())
 
 
+@torch.compiler.allow_in_graph
 def differentiable_deposit(
     normalized: torch.Tensor,
     rows: torch.Tensor,

@@ -38,6 +38,17 @@ def _flat_identity(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 
 
 @constant_cache
+def _flat_identities(
+    vector_shape: torch.Size, dtype: torch.dtype, device: torch.device
+) -> torch.Tensor:
+    """The flat identity for every instance of ``vector_shape``, laid out in
+    full: Inductor miscompiles ``index_copy`` of the expanded identity (it
+    writes every instance's entries into the one row that the expansion
+    repeats, so every instance got the last one's map)."""
+    return _flat_identity(dtype, device).expand(*vector_shape, 49).contiguous()
+
+
+@constant_cache
 def _flat_positions(positions: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor([7 * row + column for row, column in positions], device=device)
 
@@ -56,7 +67,7 @@ def matrix7(
          for value in entries.values()],
         dim=-1,
     )
-    flat = _flat_identity(like.dtype, like.device).expand(*vector_shape, 49).index_copy(
+    flat = _flat_identities(vector_shape, like.dtype, like.device).index_copy(
         -1, _flat_positions(tuple(entries), like.device), values
     )
     return flat.reshape(*vector_shape, 7, 7)

@@ -125,9 +125,16 @@ class BatchedLatticeEnv(nn.Module):
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """One gradient-ascent update of all instances in lockstep.
 
+        The gradient is ``torch.func.grad`` of the summed reward, as the JAX
+        package takes ``jax.grad``: ``torch.compile`` traces it into the
+        step's program, where it would stop at ``torch.autograd.grad``.
+
         :return: ``(new_settings, reward)``, both detached.
         """
-        settings = settings.detach().requires_grad_()
-        reward = self.reward(settings)
-        (grads,) = torch.autograd.grad(reward.sum(), settings)
+
+        def total_reward(settings):
+            reward = self.reward(settings)
+            return reward.sum(), reward
+
+        grads, reward = torch.func.grad(total_reward, has_aux=True)(settings.detach())
         return settings.detach() + learning_rate * grads, reward.detach()

@@ -70,6 +70,24 @@ def _cov(first: int, second: int, name: str) -> property:
     )
 
 
+def _weighted_moments(
+    particles: torch.Tensor, weights: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Weighted mean and unbiased variance of each column of ``particles``
+    (:meth:`ParticleBeam._component_moments`)."""
+    total = torch.sum(weights, dim=-1)
+    w_row = weights.unsqueeze(-2)
+    s1 = torch.matmul(w_row, particles).squeeze(-2)
+    s2 = torch.matmul(w_row, torch.square(particles)).squeeze(-2)
+    mean = s1 / total[..., None]
+    correction = total - torch.sum(torch.square(weights), dim=-1) / total
+    variance = (
+        torch.clamp(s2 - total[..., None] * torch.square(mean), min=0.0)
+        / correction[..., None]
+    )
+    return mean, variance
+
+
 class ParticleBeam(Beam):
     """Beam of charged macroparticles.
 
@@ -942,10 +960,14 @@ class ParticleBeam(Beam):
 
         Results are memoised for the current ``particles`` and
         ``survival_probabilities`` tensors, keyed on their identity and their
-        in-place version counters.
+        in-place version counters. Under ``torch.compile`` there is no memo:
+        a version counter is no value a trace can branch on, and the
+        compiler merges the repeated sums itself.
         """
         weights = self.survival_probabilities
         particles = self.particles
+        if torch.compiler.is_compiling():
+            return _weighted_moments(particles, weights)
         key = (particles._version, weights._version)
         cached = getattr(self, "_moments_cache", None)
         if (
@@ -955,19 +977,9 @@ class ParticleBeam(Beam):
             and cached[2] == key
         ):
             return cached[3]
-
-        total = torch.sum(weights, dim=-1)
-        w_row = weights.unsqueeze(-2)
-        s1 = torch.matmul(w_row, particles).squeeze(-2)
-        s2 = torch.matmul(w_row, torch.square(particles)).squeeze(-2)
-        mean = s1 / total[..., None]
-        correction = total - torch.sum(torch.square(weights), dim=-1) / total
-        variance = (
-            torch.clamp(s2 - total[..., None] * torch.square(mean), min=0.0)
-            / correction[..., None]
-        )
-        self._moments_cache = (particles, weights, key, (mean, variance))
-        return mean, variance
+        moments = _weighted_moments(particles, weights)
+        self._moments_cache = (particles, weights, key, moments)
+        return moments
 
     x = _component(0, "x")
     px = _component(1, "px")

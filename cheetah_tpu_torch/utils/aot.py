@@ -30,6 +30,17 @@ port decides on the host when they are assigned (a cavity's voltage, the
 tracking methods, which elements are active) are fixed in the program, as
 the JAX package's static fields are fixed in its artifact.
 
+The counterpart of compiling the artifact with XLA is AOTInductor: it
+compiles an exported program into a package (the kernels Inductor
+generates, a C++ wrapper, the lattice as constants) that runs as compiled
+code, not operator by operator as a loaded program does, and loads in any
+process::
+
+    package = torch._inductor.aoti_compile_and_package(
+        exported, package_path="step_aoti.pt2", inductor_configs=aot.AOTI_CONFIGS
+    )
+    torch._inductor.aoti_load_package(package)(*aot.beam_arguments(other_beam))
+
 A space-charge segment exports too, its particle axis symbolic: the
 kick's cloud-in-cell deposit and gather (and, on a grid of the x-tiled
 pair, their tile plans) are the operators ``cheetah_tpu_torch::cic_*``
@@ -40,8 +51,10 @@ the device of the tensors each call gets, so the program runs the plain
 versions on CPU tensors and the hand-written kernels on CUDA tensors (a
 program exported with CPU tensors moves to the card with
 ``torch.export.passes.move_to_device_pass``). A process that loads such a
-program must ``import cheetah_tpu_torch`` before ``torch.export.load``, as
-that import registers the operators::
+program (or an AOTInductor package of it, which calls the operators
+through its proxy executor) must ``import cheetah_tpu_torch`` before
+``torch.export.load`` (``aoti_load_package``), as that import registers
+the operators::
 
     import cheetah_tpu_torch  # registers the cheetah_tpu_torch::cic_* operators
 
@@ -56,6 +69,18 @@ import torch
 from torch import nn
 
 from cheetah_tpu_torch.particles import ParticleBeam, Species
+
+#: The Inductor settings that ``torch._inductor.aoti_compile_and_package``
+#: needs for a lattice's exported program: keep its parameters as tensors.
+#: A lattice holds its settings in 0-dimensional buffers, and Inductor
+#: would inline each as a number, whose lowering fails at the first view of
+#: it ("'Constant' object has no attribute 'data'" at an ``unsqueeze``,
+#: ``StopIteration`` at a ``pow`` of an ``expand``).
+AOTI_CONFIGS = {"always_keep_tensor_constants": True}
+
+#: The largest particle count an exported program takes
+#: (:func:`symbolic_particle_beam`): a particle index fits 32 bits.
+MAX_PARTICLES = 2**31 - 1
 
 #: The tensors of a particle beam in the order :class:`TrackReadout` takes
 #: them (the JAX package's pytree order).
@@ -114,14 +139,21 @@ def symbolic_particle_beam(beam: ParticleBeam, dim: str = "n") -> tuple:
 
     Every axis whose size equals ``beam.num_particles`` becomes the
     ``torch.export.Dim`` named ``dim`` (particles, per-particle charges,
-    survival probabilities). A tensor in which MORE than one axis matches
+    survival probabilities), bounded by :data:`MAX_PARTICLES`. The bound is
+    what makes an AOTInductor package right at every count: Inductor
+    takes an unbounded size in such a package to fit 32-bit indexing when
+    the example beam's tensors do, and checks nothing at run time, so a
+    package of the env step exported from 10k particles indexed past its
+    tensors at 100k (4096 x 100k x 7 elements is more than 2^31). Under a
+    finite bound that lets a tensor outgrow 32-bit indices, it indexes in
+    64 bits. A tensor in which MORE than one axis matches
     is ambiguous (``num_particles == 7`` colliding with the coordinate
     axis, or a batch dimension equal to the particle count) and raises:
     export from a beam whose particle count is unambiguous instead.
 
     :raises ValueError: on an ambiguous particle axis.
     """
-    symbol = torch.export.Dim(dim)
+    symbol = torch.export.Dim(dim, max=MAX_PARTICLES)
     num_particles = int(beam.num_particles)
 
     def symbolize(x: torch.Tensor):

@@ -96,15 +96,29 @@ def check_module_device(module: torch.nn.Module, device: torch.device) -> None:
 
     A 0-dimensional CPU tensor combines silently with CUDA tensors in
     PyTorch, so a lattice left on the CPU would otherwise mix into a GPU run
-    without an error.
+    without an error. The walk over the buffers reads devices alone, so under
+    ``torch.compile`` it runs while the step is traced (the buffers' devices
+    are guarded there) and leaves nothing in the compiled program.
     """
-    for name, buffer in module.named_buffers():
+    for name, buffer in _named_buffers(module):
         if not same_device(buffer.device, device):
             raise ValueError(
                 f"{type(module).__name__} parameter {name!r} is on device "
                 f"{buffer.device} but the beam is on device {device}; move one "
                 "of them explicitly with .to()."
             )
+
+
+def _named_buffers(module: torch.nn.Module, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
+    """``module.named_buffers()`` without its set of visited modules, which
+    hashes the modules and so cannot be traced; a module reached twice is
+    listed twice."""
+    named = [(prefix + name, buffer) for name, buffer in module._buffers.items()
+             if buffer is not None]
+    for name, child in module._modules.items():
+        if child is not None:
+            named += _named_buffers(child, f"{prefix}{name}.")
+    return named
 
 
 def constant_cache(function: Callable[..., torch.Tensor]) -> Callable[..., torch.Tensor]:
@@ -115,12 +129,17 @@ def constant_cache(function: Callable[..., torch.Tensor]) -> Callable[..., torch
     The tensor is built outside any fake-tensor mode: ``torch.export``
     traces with fake tensors, and a fake tensor cached during a trace would
     be handed to every later call, eager or traced. A real constant is
-    carried into the exported program as one of its constants.
+    carried into the exported program as one of its constants. Under
+    ``torch.compile`` the constant is built in the traced program instead,
+    which the compiler folds: the cache is the eager path's saving of a copy
+    from the host, and a compiled program makes no such copy.
     """
     cached = functools.lru_cache(maxsize=None)(function)
 
     @functools.wraps(function)
     def build_once(*args):
+        if torch.compiler.is_compiling():
+            return function(*args)
         with unset_fake_temporarily():
             return cached(*args)
 

@@ -14,6 +14,12 @@ Every Function is written in the form that ``torch.func`` transforms:
 which is sound because every forward is plain torch ops. The derivative
 rules are written with the Functions themselves, so second derivatives follow
 the same rules, as ``jax.grad`` of ``jax.grad`` does in the JAX package.
+
+``torch.compile`` traces no Function that defines ``jvp``. So each public
+function that applies one is marked ``torch.compiler.allow_in_graph``: the
+compiler records the call whole, and AOTAutograd then traces the Function's
+forward and its backward rule into the forward and backward programs, as
+``jax.jit`` traces a ``custom_jvp``.
 """
 
 from __future__ import annotations
@@ -140,16 +146,19 @@ _SincSqrt = _elementwise("_SincSqrt", _sinc_sqrt_value, lambda x: (_dsinc_sqrt(x
 _Si1mdiv = _elementwise("_Si1mdiv", _si1mdiv_value, lambda x: (_dsi1mdiv(x),))
 
 
+@torch.compiler.allow_in_graph
 def cos_sqrt(x: torch.Tensor) -> torch.Tensor:
     """``cos(sqrt(x))`` extended evenly to negative ``x`` via ``cosh(sqrt(-x))``."""
     return _CosSqrt.apply(x)
 
 
+@torch.compiler.allow_in_graph
 def sinc_sqrt(x: torch.Tensor) -> torch.Tensor:
     """``sin(sqrt(x))/sqrt(x)``, evenly extended; 1 at ``x = 0``."""
     return _SincSqrt.apply(x)
 
 
+@torch.compiler.allow_in_graph
 def si1mdiv(x: torch.Tensor) -> torch.Tensor:
     """``(1 - sinc_sqrt(x)) / x`` with limit 1/6 at 0."""
     return _Si1mdiv.apply(x)
@@ -222,6 +231,7 @@ class _CosSincSqrtPm(torch.autograd.Function):
         return tuple(slope * dx for slope in _cos_sinc_sqrt_pm_slopes(x))
 
 
+@torch.compiler.allow_in_graph
 def cos_sinc_sqrt_pm(x: torch.Tensor) -> tuple[torch.Tensor, ...]:
     r"""``(cos_sqrt(x), sinc_sqrt(x), cos_sqrt(-x), sinc_sqrt(-x))`` from one
     shared set of transcendentals (``sqrt``, ``cos``, ``sin``, ``expm1``).
@@ -467,38 +477,45 @@ _Sqrta2minusbdiva = _elementwise(
 )
 
 
+@torch.compiler.allow_in_graph
 def log1pdiv(x: torch.Tensor) -> torch.Tensor:
     """``log(1 + x) / x`` with limit 1 at 0."""
     return _Log1pdiv.apply(x)
 
 
+@torch.compiler.allow_in_graph
 def sicos1mdiv(x: torch.Tensor) -> torch.Tensor:
     """``(1 - si(sqrt(x)) cos(sqrt(x))) / x`` with limit 1/6 at 0."""
     return _Sicos1mdiv.apply(x)
 
 
+@torch.compiler.allow_in_graph
 def sipsicos3mdiv(x: torch.Tensor) -> torch.Tensor:
     """``(3 - 4 si(sqrt(x)) + si(sqrt(x)) cos(sqrt(x))) / (2x)``, limit 0."""
     return _Sipsicos3mdiv.apply(x)
 
 
+@torch.compiler.allow_in_graph
 def cossqrtmcosdivdiff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``(cos(sqrt(b)) - cos(sqrt(a))) / (a - b)``, limit ``si(sqrt(a))/2``
     at ``a == b``."""
     return _Cossqrtmcosdivdiff.apply(a, b)
 
 
+@torch.compiler.allow_in_graph
 def simsidivdiff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``(si(sqrt(a)) - si(sqrt(b))) / (b - a)`` with nested limits at
     ``a == b`` and ``b == 0``."""
     return _Simsidivdiff.apply(a, b)
 
 
+@torch.compiler.allow_in_graph
 def si2msi2divdiff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``(si^2(sqrt(b)) - si^2(sqrt(a))) / (a - b)`` with nested limits."""
     return _Si2msi2divdiff.apply(a, b)
 
 
+@torch.compiler.allow_in_graph
 def sqrta2minusbdiva(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``(sqrt(a^2 + b) - a) / b`` with limit ``1 / (2a)`` at ``b == 0``."""
     return _Sqrta2minusbdiva.apply(a, b)

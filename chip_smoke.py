@@ -82,6 +82,23 @@ screen reading twice; the space-charge line's gradient must not move
 between runs, ``track_checkpointed`` must equal ``track``, the sharded
 kick the unsharded one and the loaded program eager tracking, all bit for
 bit.
+The fourteenth slice compiles the paths as the JAX package jits them:
+the ``compiled`` phase (last) puts the env step, its k1 gradient, config
+1's ``track_moments``, the 32^3 space-charge segment, its gradient on
+32^3 and 128^3, and config 5's ``BatchedLatticeEnv.step`` and
+``grad_step`` under ``torch.compile(fullgraph=True, dynamic=False)`` with
+Inductor and with ``mode="reduce-overhead"`` (CUDA graphs), each held
+against eager, not traced again on new parameter values, its graphs free
+of the plain versions' operators, the CIC kernels launched as eagerly
+(the wrappers' counts, for CUDA graphs those of the calls that record
+them; torch.profiler's kernel names), the space-charge gradients bit for
+bit over five runs, with eager, compiled and CUDA-graph ms, launches and
+idle share. Compile processes compile and check every path cold while
+the earlier phases run, and at the end time each, one path after another
+on a quiet card; they also build the exported env step and space-charge
+segments with AOTInductor, which ``deploy`` (at 10k and 100k particles)
+and ``deploy_space_charge`` load and hold against eager and the card's
+float64 run.
 Every phase prints one JSON line. The last line is
 ``{"ok": true, "device": {...}}``; any failed check raises, so the script
 exits non-zero and prints no such line. It imports neither JAX nor the JAX
@@ -94,6 +111,7 @@ products run in full float32.
 
 from __future__ import annotations
 
+import collections
 import itertools
 import json
 import math
@@ -103,6 +121,7 @@ import subprocess
 import sys
 import time
 import warnings
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -380,8 +399,12 @@ PLOT_F64_RTOL = 1e-6
 BENCHMARK_FACTOR = 2.0
 
 
+START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line for ``phase``, with the seconds since the script began."""
+    print(json.dumps({"phase": phase, **fields, "t_s": time.perf_counter() - START}), flush=True)
 
 
 def check(condition: bool, message: str) -> None:
@@ -457,6 +480,11 @@ KERNEL_FAMILIES = {
 }
 
 
+def _kernel_name(key: str) -> str:
+    """A profiled kernel's function name, without namespace or arguments."""
+    return key.split("(")[1].split(")::")[-1] if key.startswith("void (") else key.split("(")[0]
+
+
 def profile_path(label: str, fn, ms: float) -> dict:
     """Device time by kernel over one call of ``fn`` (``torch.profiler``), and
     the device's idle share against ``ms``, the call's CUDA-event time.
@@ -482,6 +510,7 @@ def profile_path(label: str, fn, ms: float) -> dict:
         family: {
             "ms": sum(e.self_device_time_total for e in members) / 1e3,
             "count": sum(e.count for e in members),
+            "by_kernel": {_kernel_name(e.key): e.count for e in members},
         }
         for family, pieces in KERNEL_FAMILIES.items()
         for members in [[e for e in kernels if any(piece in e.key for piece in pieces)]]
@@ -1028,17 +1057,23 @@ def _check_kicks(label, beam_in, out_card, out_cpu) -> dict:
                                  out_card.particles, out_cpu.particles)
 
 
-def _check_kick_particles(label, before, actual, expected) -> dict:
+def _kick_errors(before, actual, expected) -> dict:
     """The RMS of the difference of the kicks (px, py, p: ``actual`` and
     ``expected`` less ``before``, float64 on the CPU) over the RMS of the
-    expected kick, each within ``KICK_RMS_TOLERANCE``."""
+    expected kick."""
     errors = {}
     for index, name in ((1, "px"), (3, "py"), (5, "p")):
         kick_expected = expected[..., index].cpu().double() - before[..., index]
         kick_actual = actual[..., index].cpu().double() - before[..., index]
         rms = torch.sqrt(torch.mean(kick_expected**2)).item()
-        error = torch.sqrt(torch.mean((kick_actual - kick_expected) ** 2)).item() / rms
-        errors[name] = error
+        errors[name] = torch.sqrt(torch.mean((kick_actual - kick_expected) ** 2)).item() / rms
+    return errors
+
+
+def _check_kick_particles(label, before, actual, expected) -> dict:
+    """:func:`_kick_errors`, each within ``KICK_RMS_TOLERANCE``."""
+    errors = _kick_errors(before, actual, expected)
+    for name, error in errors.items():
         check(error <= KICK_RMS_TOLERANCE[name], f"{label}: {name} kick off by {error} RMS")
     return errors
 
@@ -3345,30 +3380,28 @@ def _largest_share(actual: list, expected: list) -> float:
     )
 
 
-def phase_deploy(ctt, wrappers) -> None:
+def phase_deploy(ctt, wrappers, futures) -> None:
     """The deployment path on the card: the env step exported by
     ``torch.export`` with the particle axis symbolic, saved, loaded and run
-    at 10k and 100k particles against eager tracking; the plots of the
+    at 10k and 100k particles against eager tracking, and the same program
+    compiled by AOTInductor (by a compile process), loaded, and held to the
+    same bound at both counts; the plots of the
     imported ARES linac (float64, from a card beam whose particles require
     grad) against the float64 CPU run, and of the 1M float32 beam against
     the same particles on the CPU;
     ``utils.profiling`` against chip_smoke's own timer."""
     import tempfile
 
-    from cheetah_tpu_torch.lattices import ares_ea_subcell
     from cheetah_tpu_torch.utils import aot, profiling
 
-    segment = ares_ea_subcell(torch.float32, device="cuda")
-    segment.AREAMQZM1.k1 = torch.linspace(-20, 20, 4096, device="cuda")
-    beam = _bench_beam(ctt, 10_000, "cuda", torch.Generator(device="cuda").manual_seed(SEED))
-    step = aot.TrackReadout(segment, "sigma_x", beam.species)
+    segment, step, beam = _deploy_step(ctt, "env_step")
     start = time.perf_counter()
-    exported = torch.export.export(step, aot.beam_arguments(beam),
-                                   dynamic_shapes=aot.symbolic_particle_beam(beam))
+    exported = _export(step, beam)
     export_s = time.perf_counter() - start
     with tempfile.TemporaryDirectory() as directory:
         torch.export.save(exported, f"{directory}/env_step.pt2")
         program = torch.export.load(f"{directory}/env_step.pt2").module()
+    package, aoti_build_s = _built_package(futures, "env_step")
 
     _reset_launches(wrappers)
     runs = {}
@@ -3377,12 +3410,21 @@ def phase_deploy(ctt, wrappers) -> None:
                             torch.Generator(device="cuda").manual_seed(SEED + 1))
         arguments = aot.beam_arguments(other)
         got, want = program(*arguments), segment.track(other).sigma_x
+        built = package(*arguments)
         runs[num_particles] = {
             "shape": list(got.shape),
             "rel_err_vs_eager": ((got - want).abs() / want.abs()).max().item(),
+            "aoti_shape": list(built.shape),
+            "aoti_rel_err_vs_eager": ((built - want).abs() / want.abs()).max().item(),
             "loaded_ms": time_ms(lambda: program(*arguments), runs=10),
             "eager_track_ms": time_ms(lambda: segment.track(other).sigma_x, runs=10),
+            "aoti_ms": time_ms(lambda: package(*arguments), runs=10),
         }
+        if num_particles == 10_000:
+            profile = profile_path("deploy_aoti", lambda: package(*arguments),
+                                   runs[num_particles]["aoti_ms"])
+            runs[num_particles]["aoti_kernel_launches"] = profile["kernel_launches"]
+            runs[num_particles]["aoti_idle_share"] = profile["idle_share"]
     export_launches = _no_cic_launches(wrappers, "the exported env step")
 
     def env_step():
@@ -3412,7 +3454,7 @@ def phase_deploy(ctt, wrappers) -> None:
     histogram_share = _largest_share(card["histograms"], cpu["histograms"])
 
     emit(
-        "deploy", export_s=export_s, symbolic_axis="n", runs=runs,
+        "deploy", export_s=export_s, aoti_build_s=aoti_build_s, symbolic_axis="n", runs=runs,
         env_step_ms=own_ms, benchmark_mean_ms=benchmark["mean_ms"],
         benchmark_min_ms=benchmark["min_ms"], timeit_slope_ms=slope_s * 1e3,
         compiled_stats=stats, plots_drawn=drew, matplotlib=drew,
@@ -3422,9 +3464,10 @@ def phase_deploy(ctt, wrappers) -> None:
         cic_kernel_launches=export_launches,
     )
     for num_particles, run in runs.items():
-        check(run["shape"] == [4096], f"exported env step at {num_particles}: {run['shape']}")
-        check(run["rel_err_vs_eager"] <= DEPLOY_RTOL,
-              f"exported env step at {num_particles} off by {run['rel_err_vs_eager']}")
+        for how in ("", "aoti_"):
+            check(run[f"{how}shape"] == [4096] and run[f"{how}rel_err_vs_eager"] <= DEPLOY_RTOL,
+                  f"exported env step ({how or 'loaded'}) at {num_particles}: "
+                  f"{run[f'{how}shape']}, off by {run[f'{how}rel_err_vs_eager']}")
     ratio = benchmark["mean_ms"] / own_ms
     check(1 / BENCHMARK_FACTOR <= ratio <= BENCHMARK_FACTOR,
           f"profiling.benchmark {benchmark['mean_ms']} ms against time_ms {own_ms} ms")
@@ -3453,6 +3496,11 @@ DEPLOY_SC_OPERATORS = {
 PLAIN_VERSION_TARGETS = ("aten.index_add_.", "aten.gather.", "aten.scatter_.", "aten.sort.",
                          "aten.searchsorted.")
 DEPLOY_SC_PARTICLES = (NUM_PARTICLES, 100_000)
+#: An AOTInductor package's float32 kicks against the card's float64 run:
+#: within KICK_RMS_TOLERANCE, or, where eager tracking's own float32 kicks
+#: lie further from that run (100k particles on 128^3), within this
+#: factor of eager's error: as accurate as eager, in another rounding.
+AOTI_KICK_FACTOR = 2.0
 
 
 def _host_us(fn, calls: int = 200) -> float:
@@ -3512,7 +3560,7 @@ def _boundary_us(cic_kernels, cic_tiled, rounds: int = 5) -> dict:
     return results
 
 
-def phase_deploy_space_charge(ctt, wrappers, cic_kernels, cic_tiled) -> dict:
+def phase_deploy_space_charge(ctt, wrappers, cic_kernels, cic_tiled, futures) -> dict:
     """The space-charge segment (two kicks) exported by ``torch.export``
     from a 1M-particle float32 beam, the particle axis symbolic, on the
     32^3 grid (the untiled pair) and on 128^3 (the x-tiled pair and its
@@ -3523,24 +3571,25 @@ def phase_deploy_space_charge(ctt, wrappers, cic_kernels, cic_tiled) -> dict:
     by ``torch.sort``, its graph holding the ``cheetah_tpu_torch``
     operators and none of the plain versions' operators; the export's
     seconds, the loaded program's CUDA-event and graph ms against eager
-    tracking's. Then the host's time per call of each operator against its
-    CUDA implementation called directly. Returns each program's launches
-    at 1M particles, by grid."""
-    import collections
+    tracking's. Each exported program is also compiled by AOTInductor
+    (``aot.AOTI_CONFIGS``) by a compile process and loaded: the package
+    launches the kernels as eager tracking does, its kicks stay within
+    ``KICK_RMS_TOLERANCE`` of the card's float64 run's and repeat bit for
+    bit, with its build seconds, CUDA-event ms, launches and idle share. Then the host's time per call of each operator
+    against its CUDA implementation called directly. Returns each program's
+    launches at 1M particles, by grid, and each package's under
+    ``aoti_<grid>``."""
     import tempfile
 
     from cheetah_tpu_torch.utils import aot
 
-    beam = _bench_beam(ctt, NUM_PARTICLES, "cuda",
-                       torch.Generator(device="cuda").manual_seed(SEED))
     programs, launches_by_grid = {}, {}
     for grid in ((32, 32, 32), (128, 128, 128)):
         label = f"deploy_sc_{grid[0]}"
-        segment = _sc_segment(ctt, torch.float32, "cuda", grid)
-        step = aot.TrackReadout(segment, "particles", beam.species)
+        segment, step, beam = _deploy_step(ctt, f"sc_{grid[0]}")
+        segment64 = _sc_segment(ctt, torch.float64, "cuda", grid)
         start = time.perf_counter()
-        exported = torch.export.export(step, aot.beam_arguments(beam),
-                                       dynamic_shapes=aot.symbolic_particle_beam(beam))
+        exported = _export(step, beam)
         export_s = time.perf_counter() - start
         targets = collections.Counter(
             str(node.target) for node in exported.graph.nodes if node.op == "call_function"
@@ -3555,6 +3604,7 @@ def phase_deploy_space_charge(ctt, wrappers, cic_kernels, cic_tiled) -> dict:
         with tempfile.TemporaryDirectory() as directory:
             torch.export.save(exported, f"{directory}/{label}.pt2")
             program = torch.export.load(f"{directory}/{label}.pt2").module()
+        package, aoti_build_s = _built_package(futures, f"sc_{grid[0]}")
 
         kind = "tiled_3d" if cic_kernels.uses_tiled(grid) else "3d"
         expected = {name: 0 for name in wrappers}
@@ -3583,25 +3633,54 @@ def phase_deploy_space_charge(ctt, wrappers, cic_kernels, cic_tiled) -> dict:
             )
             check(torch.equal(_bits(got), _bits(want)),
                   f"{label} at {num_particles}: the loaded program's particles differ from eager")
+            # The AOTInductor package: the kernels as often as eagerly, the
+            # kicks as close to the card's float64 run as eager tracking's
+            # (Inductor's code rounds the float32 field computation in its
+            # own order; at 128^3 its kicks and eager's differ by 1e-4 to
+            # 2e-4 RMS), the same bits twice.
+            _reset_launches(wrappers)
+            built = package(*arguments)
+            built_launches = _launches(wrappers)
+            check(built_launches == eager,
+                  f"{label} at {num_particles}: the AOTInductor package launched "
+                  f"{built_launches}, eager {eager}")
+            before = other.particles.cpu().double()
+            want64 = segment64.track(other.to(dtype=torch.float64)).particles
+            eager_errors = _kick_errors(before, want, want64)
+            aoti_errors = _kick_errors(before, built, want64)
+            aoti_vs_eager = _kick_errors(before, built, want)
+            for name, error in aoti_errors.items():
+                bound = max(KICK_RMS_TOLERANCE[name], AOTI_KICK_FACTOR * eager_errors[name])
+                check(error <= bound, f"{label} AOTInductor at {num_particles}: {name} kick "
+                      f"off the card's float64 run by {error} RMS, eager by "
+                      f"{eager_errors[name]}")
+            check(torch.equal(_bits(built), _bits(package(*arguments))),
+                  f"{label} at {num_particles}: the AOTInductor package moved between runs")
             # Loaded, eager, loaded again: the host's load drifts during a run.
             loaded_ms = time_ms(lambda: program(*arguments), runs=10)
             eager_ms = time_ms(lambda: segment.track(other), runs=10)
+            aoti_ms = time_ms(lambda: package(*arguments), runs=10)
             runs[num_particles] = {
                 "kick_rms_rel_err_vs_eager": errors, "bit_for_bit_vs_eager": True,
-                "launches": loaded,
-                "loaded_ms": loaded_ms, "eager_track_ms": eager_ms,
+                "launches": loaded, "aoti_launches": built_launches,
+                "aoti_kick_rms_rel_err_vs_card_f64": aoti_errors,
+                "eager_kick_rms_rel_err_vs_card_f64": eager_errors,
+                "aoti_kick_rms_rel_diff_vs_eager": aoti_vs_eager,
+                "loaded_ms": loaded_ms, "eager_track_ms": eager_ms, "aoti_ms": aoti_ms,
                 "loaded_again_ms": time_ms(lambda: program(*arguments), runs=10),
                 "loaded_graph_ms": graph_ms(lambda: program(*arguments), runs=10),
             }
             if num_particles == NUM_PARTICLES:
                 launches_by_grid[grid[0]] = loaded
+                launches_by_grid[f"aoti_{grid[0]}"] = built_launches
                 for how, fn, ms in (("loaded", lambda: program(*arguments), loaded_ms),
+                                    ("aoti", lambda: package(*arguments), aoti_ms),
                                     ("eager", lambda: segment.track(other), eager_ms)):
                     profile = profile_path(f"{label}_{how}", fn, ms)
                     runs[num_particles][f"{how}_kernel_launches"] = profile["kernel_launches"]
                     runs[num_particles][f"{how}_idle_share"] = profile["idle_share"]
-        programs[label] = {"grid": list(grid), "export_s": export_s, "operators": operators,
-                           "runs": runs}
+        programs[label] = {"grid": list(grid), "export_s": export_s,
+                           "aoti_build_s": aoti_build_s, "operators": operators, "runs": runs}
     moved = _moved_program(ctt, wrappers, beam)
     boundary = _boundary_us(cic_kernels, cic_tiled)
     emit("deploy_space_charge", symbolic_axis="n", dtype="float32", kicks=2,
@@ -3637,27 +3716,570 @@ def _moved_program(ctt, wrappers, beam) -> dict:
     return {"grid": [32, 32, 32], "launches": launches, "kick_rms_rel_err_vs_eager": errors}
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke.py needs a CUDA card; none is available.", file=sys.stderr)
-        return 1
+# ---------------------------------------------------------------------------
+# The fourteenth slice: the paths under torch.compile, the exported
+# programs built by AOTInductor
+# ---------------------------------------------------------------------------
+
+#: Where Inductor and Triton keep what they build, and where the
+#: AOTInductor packages go: the git-ignored build/.
+COMPILE_CACHE = pathlib.Path(__file__).resolve().parent / "build" / "compile_cache"
+#: Runs of a compiled space-charge gradient that must give the same bits.
+COMPILED_REPEATS = 5
+#: Slice paths 1-6 as chip_smoke compiles them (``_compiled_case``).
+COMPILED_PATHS = ("env_step", "env_step_grad", "parameter_beam_env_step", "sc_segment_32",
+                  "sc_grad_32", "sc_grad_128", "batched_env_step", "batched_env_grad_step")
+#: The compile processes (``_start_compiles``), each with its tasks, which
+#: it runs while the path phases run: it builds the AOTInductor packages
+#: that the deploy phases load (first, as those phases come first) and
+#: compiles and checks its paths (``_compile_path``); at the end it times
+#: them (``_time_path``). A cold compile is mostly Inductor's
+#: single-threaded lowering and code generation (120-200 s a path in both
+#: modes on the card's host beside the path phases, a package 130-140 s),
+#: which one after another would not fit the script's time limit; more
+#: processes than four slow each compile as much as they add (six: a
+#: package 225-235 s). The groups even out each process's share; the two
+#: space-charge gradients, which compile the same function, lie in
+#: different processes.
+COMPILE_GROUPS = (
+    ("aoti_sc_128", "batched_env_grad_step"),
+    ("aoti_env_step", "sc_grad_32", "env_step_grad"),
+    ("sc_grad_128", "batched_env_step", "env_step"),
+    ("aoti_sc_32", "sc_segment_32", "parameter_beam_env_step"),
+)
+COMPILE_THREADS = 2
+COMPILE_TIMEOUT_S = 900
+
+
+def _compile_cache() -> None:
+    """Point Inductor and Triton at ``COMPILE_CACHE``, in the environment
+    that the compile processes inherit, before the first compile."""
+    import os
+
+    COMPILE_CACHE.mkdir(parents=True, exist_ok=True)
+    os.environ["TORCHINDUCTOR_CACHE_DIR"] = str(COMPILE_CACHE / "inductor")
+    os.environ["TRITON_CACHE_DIR"] = str(COMPILE_CACHE / "triton")
+
+
+def _inductor_recording(graphs: list):
+    """Inductor, keeping the operators of every graph it gets from
+    AOTAutograd (a step's forward, and its backward)."""
+    from torch._inductor.compile_fx import compile_fx, compile_fx_inner
+
+    def inner(graph_module, example_inputs, **kwargs):
+        graphs.append(collections.Counter(
+            str(node.target) for node in graph_module.graph.nodes if node.op == "call_function"
+        ))
+        return compile_fx_inner(graph_module, example_inputs, **kwargs)
+
+    def backend(graph_module, example_inputs):
+        return compile_fx(graph_module, example_inputs, inner_compile=inner)
+
+    return backend
+
+
+def _graph_operators(graphs: list) -> tuple[dict, dict]:
+    """The ``cheetah_tpu_torch`` operators and the plain versions' operators
+    that the compiled graphs hold, summed over the graphs."""
+    total = sum(graphs, collections.Counter())
+    return ({name: count for name, count in total.items() if name.startswith("cheetah_tpu_torch.")},
+            {name: count for name, count in total.items() if name.startswith(PLAIN_VERSION_TARGETS)})
+
+
+def _detached(outputs) -> tuple:
+    """A step's outputs as copies, which a later replay of a CUDA graph
+    does not overwrite."""
+    return tuple(output.detach().clone() for output in outputs)
+
+
+def _output_bits(outputs) -> torch.Tensor:
+    return _bits(torch.cat([output.detach().flatten() for output in outputs]))
+
+
+def _compile_stages(count: int = 6) -> dict:
+    """The longest stages of the compiles since the metrics were cleared
+    (Dynamo's tracing, AOTAutograd, Inductor, Triton), in seconds."""
+    names, values = torch._dynamo.utils.compile_times(repr="csv", aggregate=True)
+    stages = sorted(zip(names, (float(value) for value in values)), key=lambda item: -item[1])
+    return dict(stages[:count])
+
+
+def _rel_max(actual: torch.Tensor, expected: torch.Tensor) -> float:
+    """max |actual - expected| / |expected|, element by element."""
+    return ((actual.double() - expected.double()).abs() / expected.double().abs()).max().item()
+
+
+class _CompiledCase(NamedTuple):
+    """One slice path as a user compiles it: ``fn`` is what
+    ``torch.compile`` gets; ``call(f)`` runs one step through ``f`` (``fn``
+    itself or a compiled ``fn``) and returns its outputs; ``renew()`` gives
+    the step's parameters new values of the same shapes; ``compare(actual,
+    expected)`` holds a compiled step's outputs to the uncompiled step's
+    (raising past the path's bound) and returns the errors;
+    ``expected_cic`` the wrappers' launches of one step; ``repeats`` how
+    many runs must give the same bits."""
+
+    fn: object
+    call: object
+    renew: object
+    compare: object
+    expected_cic: dict
+    repeats: int = 0
+
+
+def _compiled_case(name: str, ctt, parallel, cic_kernels) -> _CompiledCase:
+    """The slice path ``name`` (of ``COMPILED_PATHS``) at the full widths,
+    float32 on the card, its parameters at their first values."""
+    from cheetah_tpu_torch.lattices import ares_ea_subcell
+
+    generator = torch.Generator(device="cuda").manual_seed(SEED)
+    if name in ("env_step", "env_step_grad", "parameter_beam_env_step"):
+        segment = ares_ea_subcell(torch.float32)
+        beam = _bench_beam(ctt, 10_000, "cuda", generator)
+        grad = name == "env_step_grad"
+        spans = iter([(-20.0, 20.0), (-12.0, 15.0)] * 2)
+
+        def renew():
+            low, high = next(spans)
+            segment.AREAMQZM1.k1 = torch.linspace(low, high, ENV_INSTANCES, device="cuda",
+                                                  requires_grad=grad)
+
+        renew()
+        if grad:
+
+            def value_and_grad(f):
+                k1 = segment.AREAMQZM1.k1
+                value = f(segment, beam)
+                return value, torch.autograd.grad(value, k1)[0]
+
+            def compare_grad(actual, expected):
+                value = _rel_max(actual[0], expected[0])
+                k1_grad = relative_error(actual[1], expected[1])[1]
+                check(value <= ENV_STEP_RTOL and k1_grad <= ENV_GRAD_TOLERANCE,
+                      f"compiled env gradient off eager: value {value}, k1 gradient {k1_grad}")
+                return {"value": value, "k1_grad": k1_grad}
+
+            return _CompiledCase(lambda s, b: s.track(b).sigma_x.sum(), value_and_grad, renew,
+                                 compare_grad, {})
+        bound = ENV_STEP_RTOL
+        if name == "parameter_beam_env_step":
+            bound = PARAMETER_BEAM_RTOL
+            beam = ctt.ParameterBeam.from_twiss(
+                beta_x=5.0, emittance_x=2e-9, beta_y=3.0, emittance_y=2e-9, energy=1.54e8,
+                dtype=torch.float32, device="cuda",
+            )
+            fn = lambda s, b: s.track_moments(b).sigma_x  # noqa: E731
+        else:
+            fn = lambda s, b: s.track(b).sigma_x  # noqa: E731
+
+        def compare_sigma(actual, expected):
+            error = _rel_max(actual[0], expected[0])
+            check(error <= bound, f"compiled {name}: sigma_x off eager by {error}")
+            return error
+
+        return _CompiledCase(fn, lambda f: (f(segment, beam),), renew, compare_sigma, {})
+
+    if name.startswith("sc_"):
+        grid = (int(name.rsplit("_", 1)[1]),) * 3
+        segment = _sc_segment(ctt, torch.float32, "cuda", grid)
+        beam = _bench_beam(ctt, NUM_PARTICLES, "cuda", generator)
+        grad = name.startswith("sc_grad")
+        lengths = iter([0.1, 0.12] * 2)
+
+        def renew():
+            segment.elements[0].length = torch.tensor(next(lengths), device="cuda",
+                                                      requires_grad=grad)
+
+        renew()
+        kind = "tiled_3d" if cic_kernels.uses_tiled(grid) else "3d"
+        if not grad:
+            before = beam.particles.cpu().double()
+
+            def compare_kicks(actual, expected):
+                return _check_kick_particles(f"compiled {name}", before, actual[0], expected[0])
+
+            return _CompiledCase(lambda s, b: s.track(b).particles, lambda f: (f(segment, beam),),
+                                 renew, compare_kicks,
+                                 {f"deposit_multi_{kind}": 2, f"gather_multi_{kind}": 2})
+
+        def value_and_grad(f):
+            length = segment.elements[0].length
+            value = f(segment, beam)
+            return value, torch.autograd.grad(value, length)[0]
+
+        def compare_grad(actual, expected):
+            error = abs(actual[1].item() - expected[1].item()) / abs(expected[1].item())
+            check(error <= SC_GRAD_F32_RTOL[grid], f"compiled {name} off eager by {error}")
+            return error
+
+        expected = {f"deposit_multi_{kind}": 4, f"gather_multi_{kind}": 6}
+        if kind == "tiled_3d":
+            expected["plan_tiles"] = 4
+        return _CompiledCase(lambda s, b: torch.sum(torch.square(s.track(b).px)),
+                             value_and_grad, renew, compare_grad, expected, COMPILED_REPEATS)
+
+    # BatchedLatticeEnv (config 5), compiled as a user compiles it:
+    # torch.compile(env.step), new settings every call.
+    settings = torch.tensor(_env_settings(), dtype=torch.float32, device="cuda")
+    beam = _bench_beam(ctt, 10_000, "cuda", generator)
+    env = _env(parallel, torch.float32, "cuda", beam)
+    current = {"settings": settings}
+    shifts = iter([0.0, 0.5] * 2)
+
+    def renew():
+        shift = next(shifts)
+        current["settings"] = settings + torch.tensor([shift, -shift, shift, 0.0, 0.0],
+                                                      device="cuda")
+
+    renew()
+    if name == "batched_env_step":
+
+        def step_call(f):
+            outgoing, _, reward = f(current["settings"])
+            return reward, outgoing.particles
+
+        def compare_step(actual, expected):
+            # The raw-moment variance amplifies float32 rounding by 1 +
+            # (mu / sigma)^2 per instance: the bound of phase batched_env.
+            got, want = (ctt.ParticleBeam(outputs[1], beam.energy)
+                         for outputs in (actual, expected))
+            bound = ENV_STEP_RTOL * _amplification(want)
+            errors = [((a - e).abs() / e.abs() / bound).max().item()
+                      for a, e in ((actual[0], expected[0]), (got.sigma_x, want.sigma_x),
+                                   (got.sigma_y, want.sigma_y))]
+            check(max(errors) <= 1.0, f"compiled env.step off eager by {errors} of its bound")
+            return max(errors)
+
+        return _CompiledCase(env.step, step_call, renew, compare_step, {})
+
+    def compare_grad_step(actual, expected):
+        # The steps taken: the k1 gradients within their bound; the
+        # gradients by the corrector angles are zero up to float32
+        # rounding (sigma does not depend on the centroid; phase
+        # batched_env bounds that rounding), and the learning rate times
+        # that rounding moves the angles differently in each rounding order.
+        grads = [(outputs[0] - current["settings"]) / ENV_LEARNING_RATE
+                 for outputs in (actual, expected)]
+        k1_grad = relative_error(grads[0][:, :3], grads[1][:, :3])[1]
+        reward = relative_error(actual[1], expected[1])[1]
+        check(k1_grad <= ENV_GRAD_TOLERANCE and reward <= ENV_STEP_RTOL,
+              f"compiled grad_step off eager: k1 gradients {k1_grad}, reward {reward}")
+        return {"k1_grad": k1_grad, "reward": reward,
+                "angle_grad_max_diff": (grads[0][:, 3:] - grads[1][:, 3:]).abs().max().item()}
+
+    return _CompiledCase(env.grad_step, lambda f: f(current["settings"], ENV_LEARNING_RATE),
+                         renew, compare_grad_step, {})
+
+
+def _graphed(fn):
+    """``fn`` compiled with CUDA graphs (``mode="reduce-overhead"``)."""
+    return torch.compile(fn, fullgraph=True, dynamic=False, mode="reduce-overhead")
+
+
+def _graphed_call(case: _CompiledCase, graphed):
+    torch.compiler.cudagraph_mark_step_begin()
+    return case.call(graphed)
+
+
+def _compile_process_init() -> None:
+    """A compile process's settings: the main process's full float32
+    products, and ``COMPILE_THREADS`` Triton compile workers."""
+    import torch._inductor.config
+
+    torch._inductor.config.compile_threads = COMPILE_THREADS
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+
+def _build_package(name: str) -> float:
+    """In a compile process: deploy step ``name`` exported and built by
+    AOTInductor into ``COMPILE_CACHE / <name>.pt2``; the build's seconds."""
     import cheetah_tpu_torch as ctt
+
+    _, step, beam = _deploy_step(ctt, name)
+    start = time.perf_counter()
+    _aoti_build(_export(step, beam), name)
+    seconds = time.perf_counter() - start
+    del step, beam
+    torch.cuda.empty_cache()  # the card's memory back to the path phases
+    return seconds
+
+
+def _start_compiles():
+    """Start the compile processes, one ``ProcessPoolExecutor`` of one
+    process for each of ``COMPILE_GROUPS``, and give each its tasks:
+    ``aoti_<program>`` (``_build_package``), or a path (``_compile_path``).
+    Returns the pools and the futures by task."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pools, futures = [], {}
+    for group in COMPILE_GROUPS:
+        pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"),
+                                   initializer=_compile_process_init)
+        pools.append(pool)
+        for task in group:
+            if task.startswith("aoti_"):
+                futures[task] = pool.submit(_build_package, task.removeprefix("aoti_"))
+            else:
+                futures[task] = pool.submit(_compile_path, task)
+    return pools, futures
+
+
+def _profiled_cic_kernels(fn) -> dict:
+    """The CIC kernels that torch.profiler records in one call of ``fn``,
+    launches by kernel name, its trace opened one call before the call it
+    counts (the schedule's warm-up step). In a process that runs
+    Inductor's code the profiler loses a few kernel records of a step,
+    now and then a CIC kernel's (``scripts_torch/profiler_drops.py``), so
+    these counts name the kernels; the wrappers count the launches
+    (``_compile_path``). (The warm-up also inflates the device times of
+    the counted call, which ``profile_path`` measures with a trace of the
+    call alone.)"""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as trace:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            trace.step()
+    counts = collections.Counter()
+    for e in trace.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and any(
+            piece in e.key for pieces in KERNEL_FAMILIES.values() for piece in pieces
+        ):
+            counts[_kernel_name(e.key)] += e.count
+    return dict(counts)
+
+
+#: In a compile process: each path it compiled (``_compile_path``), kept
+#: for ``_time_path``.
+_COMPILED = {}
+
+
+def _compile_path(name: str) -> dict:
+    """In a compile process: path ``name`` under ``torch.compile(fn,
+    fullgraph=True, dynamic=False)`` with Inductor, its graphs recorded:
+    compiled cold by its first call, held against eager, not traced again
+    after ``renew()``, held again; its graphs hold no plain version's
+    operator; the wrappers count ``expected_cic`` launches a step;
+    ``repeats`` runs give the same bits. Then compiled with
+    ``mode="reduce-overhead"`` (CUDA graphs): the calls that run and
+    record the step count ``expected_cic`` launches each, its replays none;
+    held and repeated the same way. Keeps both for ``_time_path``; returns
+    the path's fields."""
+    import cheetah_tpu_torch as ctt
+    from cheetah_tpu_torch import parallel
     from cheetah_tpu_torch.ops import cic_kernels, cic_tiled
 
     wrappers = _wrappers(cic_kernels, cic_tiled)
-    smi = phase_environment()
-    phase_build([cic_kernels.LIBRARY, cic_tiled.LIBRARY])
-    numbers = phase_kernels(cic_kernels)
-    tiled_numbers = phase_kernels_tiled(cic_kernels, cic_tiled)
-    emit("deposit_crowded", particles=NUM_PARTICLES, cells=8,
-         cases=_crowded_deposit_errors(cic_kernels, cic_tiled,
-                                       torch.Generator(device="cuda").manual_seed(SEED + 5)))
-    phase_determinism(ctt, cic_kernels, cic_tiled)
-    phase_gather_order_sets(cic_kernels, cic_tiled)
-    phase_autograd_kernels(cic_kernels, wrappers)
+    case = _compiled_case(name, ctt, parallel, cic_kernels)
+    label = f"compiled_{name}"
+    graphs = []
+    compiled = torch.compile(case.fn, fullgraph=True, dynamic=False,
+                             backend=_inductor_recording(graphs))
+    want = _detached(case.call(case.fn))
+    torch._dynamo.utils.compilation_time_metrics.clear()
+    start = time.perf_counter()
+    got = _detached(case.call(compiled))
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - start
+    stages = _compile_stages()
+    errors = {"first": case.compare(got, want)}
+    case.renew()
+    want = _detached(case.call(case.fn))
+    with torch._dynamo.config.patch(error_on_recompile=True):
+        got = _detached(case.call(compiled))
+    errors["renewed"] = case.compare(got, want)
+    operators, plain = _graph_operators(graphs)
+    check(not plain, f"{label}: the compiled graphs hold the plain versions' {plain}")
+
+    _reset_launches(wrappers)
+    case.call(compiled)
+    launches = _launches(wrappers)
+    expected = {name: 0 for name in wrappers} | case.expected_cic
+    check(launches == expected, f"{label}: the compiled step launched {launches}")
+    if case.repeats:
+        runs = [_output_bits(case.call(compiled)) for _ in range(case.repeats)]
+        check(all(torch.equal(run, runs[0]) for run in runs),
+              f"{label}: the compiled step's outputs moved between runs")
+
+    graphed = _graphed(case.fn)
+    # Compile, warm up, record, replay: the wrappers count the launches of
+    # each call that runs or records the step, and none of a replay, so the
+    # calls before the first that launches nothing give the launches that
+    # the CUDA graph holds.
+    calls = []
+    start = time.perf_counter()
+    while len(calls) < 3 or (case.expected_cic and any(calls[-1].values())):
+        check(len(calls) < 6, f"{label}: the CUDA-graph step never replayed: {calls}")
+        _reset_launches(wrappers)
+        got = _detached(_graphed_call(case, graphed))
+        calls.append(_launches(wrappers))
+    graphs_compile_s = time.perf_counter() - start
+    if case.expected_cic:
+        first_replay = next(i for i, call in enumerate(calls) if not any(call.values()))
+        check(first_replay > 0 and all(call == expected for call in calls[:first_replay])
+              and not any(value for call in calls[first_replay:] for value in call.values()),
+              f"{label}: the CUDA-graph step's calls launched {calls}, not {expected} "
+              "until its replays")
+    errors["graphs"] = case.compare(got, want)
+    if case.repeats:
+        runs = [_output_bits(_graphed_call(case, graphed)) for _ in range(case.repeats)]
+        check(all(torch.equal(run, runs[0]) for run in runs),
+              f"{label}: the CUDA-graph step's outputs moved between runs")
+    _COMPILED[name] = (case, compiled, graphed)
+    torch.cuda.empty_cache()  # the card's memory back to the path phases
+    return {
+        "compile_s": compile_s, "graphs_compile_s": graphs_compile_s,
+        "compile_seconds_by_stage": stages, "errors_vs_eager": errors, "operators": operators,
+        "wrapper_launches": launches, "graphs_wrapper_launches_by_call": calls,
+        "graph_count": len(graphs),
+        "repeats_bit_for_bit": case.repeats,
+    }
+
+
+def _time_path(name: str) -> dict:
+    """In the compile process that compiled path ``name``, with nothing
+    else running: its eager, compiled and CUDA-graph steps timed with CUDA
+    events (host included) and profiled (launches, idle share); the
+    compiled and the CUDA-graph step run the CIC kernels that the eager
+    step runs, by the profiler's kernel names (their launches are the
+    wrappers', held in ``_compile_path``). Returns the fields."""
+    case, compiled, graphed = _COMPILED.pop(name)
+    label = f"compiled_{name}"
+    timings, profiles, names = {}, {}, {}
+    for how, step in (("eager", lambda: case.call(case.fn)),
+                      ("compiled", lambda: case.call(compiled)),
+                      ("graphs", lambda: _graphed_call(case, graphed))):
+        ms = time_ms(step, runs=10)
+        profile = profile_path(f"{label}_{how}", step, ms)
+        cic = _profiled_cic_kernels(step)
+        timings[f"{how}_ms"] = ms
+        profiles[how] = {"kernel_launches": profile["kernel_launches"],
+                         "idle_share": profile["idle_share"],
+                         "device_busy_ms": profile["device_busy_ms"], "cic": cic}
+        # The kernels named in either profile of the step.
+        names[how] = sorted(set(cic).union(*(family["by_kernel"]
+                                             for family in profile["cic_kernels"].values())))
+    for how in ("compiled", "graphs"):
+        check(names[how] == names["eager"],
+              f"{label}: CIC kernels {how} {names[how]}, eager {names['eager']}")
+    del case, compiled, graphed
+    torch.cuda.empty_cache()  # the card's memory for the next path, in another process
+    return {**timings, "profiles": profiles, "cic_kernel_names": names["eager"]}
+
+
+def phase_compiled(pools, futures) -> dict:
+    """Slice paths 1-6 (``COMPILED_PATHS``) under ``torch.compile(fullgraph=
+    True, dynamic=False)`` with Inductor at the full widths: each compiled
+    cold and checked by a compile process while the path phases ran
+    (``_compile_path``), then timed and profiled by that process
+    (``_time_path``), one path after another while every other process
+    waits, on a quiet card. One line per path, then ``compiled`` with the
+    compile seconds. Returns the wrappers' launches of one compiled step of
+    each space-charge path."""
+    import triton
+
+    check(not torch._dynamo.config.suppress_errors, "Dynamo would hide a compile failure")
+    paths = {name: futures[name].result(timeout=COMPILE_TIMEOUT_S) for name in COMPILED_PATHS}
+    torch.cuda.empty_cache()  # this process's cached card memory, for the compile processes
+    for group, pool in zip(COMPILE_GROUPS, pools):
+        for name in group:
+            if name in paths:
+                paths[name].update(pool.submit(_time_path, name).result(timeout=COMPILE_TIMEOUT_S))
+                emit(f"compiled_{name}", **paths[name])
+    emit("compiled", triton=triton.__version__, processes=len(COMPILE_GROUPS),
+         compile_s={name: fields["compile_s"] for name, fields in paths.items()},
+         graphs_compile_s={name: fields["graphs_compile_s"] for name, fields in paths.items()})
+    return {f"compiled_{name}": paths[name]["wrapper_launches"]
+            for name in COMPILED_PATHS if name.startswith("sc_")}
+
+
+def _stop_compiles(pools) -> None:
+    """Stop the compile processes (their queued tasks cancelled, a running
+    one finished)."""
+    for pool in pools:
+        pool.shutdown(cancel_futures=True)
+
+
+def _aoti_compiler() -> str:
+    """The C++ compiler for AOTInductor's wrapper, which it builds with
+    ``-fopenmp``: ``$CXX`` where that compiler builds OpenMP code, else
+    ``g++``. (On one card's host ``$CXX`` is a g++ without ``libgomp.spec``
+    and fails every package build.)"""
+    import os
+
+    source = COMPILE_CACHE / f"openmp_probe_{os.getpid()}.cpp"
+    source.write_text("int probe() { int n = 0;\n#pragma omp parallel\n{ n = 1; }\nreturn n; }\n")
+    for compiler in (os.environ.get("CXX"), "g++"):
+        if compiler and subprocess.run(
+            [compiler, "-fopenmp", "-shared", "-fPIC", str(source), "-o",
+             str(source.with_suffix(".so"))], capture_output=True, timeout=120,
+        ).returncode == 0:
+            return compiler
+    raise AssertionError("no C++ compiler here builds OpenMP code, which AOTInductor needs")
+
+
+def _deploy_step(ctt, name: str):
+    """The segment, its ``aot.TrackReadout`` step and the beam it is
+    exported from, for the deploy phases and the AOTInductor builds:
+    ``env_step`` (the env step's sigma_x, 4096 instances, 10k particles) or
+    ``sc_<n>`` (the two-kick space-charge segment's particles on n^3, 1M)."""
+    from cheetah_tpu_torch.lattices import ares_ea_subcell
+    from cheetah_tpu_torch.utils import aot
+
+    generator = torch.Generator(device="cuda").manual_seed(SEED)
+    if name == "env_step":
+        segment = ares_ea_subcell(torch.float32, device="cuda")
+        segment.AREAMQZM1.k1 = torch.linspace(-20, 20, ENV_INSTANCES, device="cuda")
+        beam = _bench_beam(ctt, 10_000, "cuda", generator)
+        return segment, aot.TrackReadout(segment, "sigma_x", beam.species), beam
+    grid = (int(name.removeprefix("sc_")),) * 3
+    segment = _sc_segment(ctt, torch.float32, "cuda", grid)
+    beam = _bench_beam(ctt, NUM_PARTICLES, "cuda", generator)
+    return segment, aot.TrackReadout(segment, "particles", beam.species), beam
+
+
+def _export(step, beam):
+    """``step`` exported by ``torch.export`` from ``beam``, the particle
+    axis symbolic."""
+    from cheetah_tpu_torch.utils import aot
+
+    return torch.export.export(step, aot.beam_arguments(beam),
+                               dynamic_shapes=aot.symbolic_particle_beam(beam))
+
+
+def _aoti_build(exported, name: str) -> str:
+    """``exported`` compiled by AOTInductor (``aot.AOTI_CONFIGS``) into the
+    package ``<name>.pt2`` of the run's compile cache."""
+    import torch._inductor
+
+    from cheetah_tpu_torch.utils import aot
+
+    return torch._inductor.aoti_compile_and_package(
+        exported, package_path=str(COMPILE_CACHE / f"{name}.pt2"),
+        inductor_configs=aot.AOTI_CONFIGS | {"cpp.cxx": (None, _aoti_compiler())},
+    )
+
+
+def _built_package(futures, name: str):
+    """The AOTInductor package of deploy step ``name``, once a compile
+    process has built it, loaded; and its build's seconds."""
+    import torch._inductor
+
+    seconds = futures[f"aoti_{name}"].result(timeout=COMPILE_TIMEOUT_S)
+    return torch._inductor.aoti_load_package(str(COMPILE_CACHE / f"{name}.pt2")), seconds
+
+
+def _path_phases(ctt, wrappers, cic_kernels, cic_tiled, smi, futures) -> tuple:
+    """The path phases, from the env step to the deploy phases, which load
+    the packages of ``futures``. Returns the CIC wrappers' launches of the
+    space-charge segment, and by grid those of its gradient, the line, the
+    sharded gradient and the exported and AOTInductor programs."""
     phase_env_step(ctt, wrappers)
     segment_launches = phase_space_charge(ctt, wrappers)
     phase_env_step_grad(ctt, wrappers)
@@ -3700,9 +4322,48 @@ def main() -> int:
     # The tenth slice: the imported ARES linac, beam I/O and deployment.
     phase_imported_ares(ctt, wrappers, smi)
     phase_beam_io(ctt, wrappers)
-    phase_deploy(ctt, wrappers)
-    # The eleventh slice: the space-charge segment exported and loaded.
-    deploy_launches = phase_deploy_space_charge(ctt, wrappers, cic_kernels, cic_tiled)
+    phase_deploy(ctt, wrappers, futures)
+    # The eleventh slice: the space-charge segment exported and loaded (and,
+    # since the fourteenth, built by AOTInductor).
+    deploy_launches = phase_deploy_space_charge(ctt, wrappers, cic_kernels, cic_tiled,
+                                                futures)
+    return segment_launches, grad_launches, line_launches, sharded_launches, deploy_launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke.py needs a CUDA card; none is available.", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    _compile_cache()
+    import cheetah_tpu_torch as ctt
+    from cheetah_tpu_torch.ops import cic_kernels, cic_tiled
+
+    wrappers = _wrappers(cic_kernels, cic_tiled)
+    smi = phase_environment()
+    phase_build([cic_kernels.LIBRARY, cic_tiled.LIBRARY])
+    numbers = phase_kernels(cic_kernels)
+    tiled_numbers = phase_kernels_tiled(cic_kernels, cic_tiled)
+    emit("deposit_crowded", particles=NUM_PARTICLES, cells=8,
+         cases=_crowded_deposit_errors(cic_kernels, cic_tiled,
+                                       torch.Generator(device="cuda").manual_seed(SEED + 5)))
+    phase_determinism(ctt, cic_kernels, cic_tiled)
+    phase_gather_order_sets(cic_kernels, cic_tiled)
+    phase_autograd_kernels(cic_kernels, wrappers)
+    # The compile processes build the AOTInductor packages and compile the
+    # slice paths cold beside the path phases (after the kernels are timed);
+    # the deploy phases load the packages, and the compiled phase at the end
+    # compiles the paths again from their cache and times them.
+    pools, futures = _start_compiles()
+    try:
+        paths = _path_phases(ctt, wrappers, cic_kernels, cic_tiled, smi, futures)
+        # The fourteenth slice: the paths under torch.compile.
+        compiled_launches = phase_compiled(pools, futures)
+    finally:
+        _stop_compiles(pools)
+    segment_launches, grad_launches, line_launches, sharded_launches, deploy_launches = paths
 
     def entry(name, source, replaces, measured, **extra):
         by_path = {"space_charge_segment": segment_launches[name],
@@ -3711,10 +4372,12 @@ def main() -> int:
                    "sc_sharded_32": sharded_launches[32][name],
                    "sc_sharded_128": sharded_launches[128][name],
                    "deploy_sc_32": deploy_launches[32][name],
-                   "deploy_sc_128": deploy_launches[128][name]}
-        launches = sum(by_path[path] for path in
-                       ("sc_grad_32", "sc_grad_128", "sc_line_32", "sc_line_128",
-                        "sc_sharded_32", "sc_sharded_128", "deploy_sc_32", "deploy_sc_128"))
+                   "deploy_sc_128": deploy_launches[128][name],
+                   "aoti_sc_32": deploy_launches["aoti_32"][name],
+                   "aoti_sc_128": deploy_launches["aoti_128"][name],
+                   **{path: counts[name] for path, counts in compiled_launches.items()}}
+        launches = sum(count for path, count in by_path.items()
+                       if path != "space_charge_segment")
         check(launches > 0, f"{name} was not launched on its path")
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,

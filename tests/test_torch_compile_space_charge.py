@@ -1,0 +1,154 @@
+"""``torch.compile`` of the space-charge segment on the CPU (slice paths 4
+and 5 of ``test_torch_compile.py``, whose helpers this file uses).
+
+The segment is Drift-Kick-Drift-Kick-Drift on an 8^3 grid (the untiled
+pair) and on (160, 40, 16) (the x-tiled pair and its tile plans), in
+float64: its particles, and the gradient of ``sum(px^2)`` by the first
+drift's length, compiled with ``fullgraph=True``, not traced again when
+the length changes, equal to the uncompiled call and within the JAX
+package's own jit-against-eager spread of its jitted kicks and
+``jax.grad``. The graphs AOTAutograd hands on (forward and backward) are
+recorded: together they call the grid's ``cheetah_tpu_torch::cic_*``
+operators, and none holds an operator of their plain versions.
+
+On the card, ``chip_smoke.py``'s ``compiled`` phase holds the compiled
+steps' kernel launches to eager tracking's (the wrappers' counts, and
+torch.profiler's kernel names).
+"""
+
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import cheetah_tpu as ct
+from test_torch_compile import (  # noqa: F401 (_fresh_dynamo: autouse)
+    F64,
+    _compiled_matches_eager,
+    _fresh_dynamo,
+    _jax_twiss_beam,
+    _recording,
+    beam_to_torch,
+    segment_to_torch,
+)
+
+#: The space-charge kicks against the JAX package's jitted kicks, as a
+#: share of the largest kick: the JAX package's own jitted and eager kicks
+#: differ by up to 1.3e-6 of it (ROADMAP, the known behaviours).
+KICK_BOUND = 1.3e-6
+GRIDS = {"untiled": (8, 8, 8), "tiled": (160, 40, 16)}
+OPERATORS = {
+    "untiled": {"cheetah_tpu_torch.cic_deposit_multi.default",
+                "cheetah_tpu_torch.cic_gather_multi.default"},
+    "tiled": {"cheetah_tpu_torch.cic_tile_plan.default",
+              "cheetah_tpu_torch.cic_deposit_tiled.default",
+              "cheetah_tpu_torch.cic_gather_tiled.default"},
+}
+#: What the plain versions leave in a graph: the deposit's index_add_, the
+#: gather's gather, the tiled gather's scatter_, the plan's sort and
+#: searchsorted (the kick's own out-of-place index_add is aten.index_add).
+PLAIN_TARGETS = ("aten.index_add_.", "aten.gather.", "aten.scatter_.", "aten.sort.",
+                 "aten.searchsorted.")
+
+
+def _assert_kernel_operators(graphs, grid):
+    """Every graph holds no plain version's operator, and together they
+    call each of the grid's operators."""
+    called = set()
+    for graph in graphs:
+        assert not [target for target in graph if target.startswith(PLAIN_TARGETS)], graph
+        called |= {target for target in graph if target.startswith("cheetah_tpu_torch.")}
+    assert called == OPERATORS[grid]
+
+
+
+
+def _jax_sc_segment(grid):
+    a = lambda value: jnp.asarray(value, jnp.float64)  # noqa: E731
+    return ct.Segment([
+        ct.Drift(a(0.1)), ct.SpaceChargeKick(a(0.2), grid_shape=grid), ct.Drift(a(0.1)),
+        ct.SpaceChargeKick(a(0.2), grid_shape=grid), ct.Drift(a(0.1)),
+    ])
+
+
+@pytest.fixture(scope="module")
+def sc_beams():
+    jax_beam = _jax_twiss_beam(2000, 5, sigma_tau=1e-5, sigma_p=1e-4)
+    return jax_beam, beam_to_torch(jax_beam)
+
+
+def _jax_sc_track(length, segment, beam):
+    segment.elements[0].length = length
+    return segment.track(beam).particles
+
+
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+def test_space_charge_segment_compiles_on_the_operators(sc_beams, grid):
+    """Path 4: the segment's particles, the first drift's length assigned
+    between calls; the graph calls the CIC operators, never their plain
+    versions, and the kicks agree with the JAX package's jitted kicks."""
+    jax_beam, beam = sc_beams
+    jax_segment = _jax_sc_segment(GRIDS[grid])
+    segment = segment_to_torch(jax_segment)
+    lengths = (0.1, 0.13)
+
+    def run(f, length):
+        segment.elements[0].length = torch.tensor(length, dtype=F64)
+        return (f(segment, beam),)
+
+    graphs = []
+    results = _compiled_matches_eager(lambda s, b: s.track(b).particles, run, lengths,
+                                      backend=_recording(graphs))
+    assert len(graphs) == 1
+    _assert_kernel_operators(graphs, grid)
+    jitted = jax.jit(_jax_sc_track)
+    drifted = segment_to_torch(ct.Segment([ct.Drift(jnp.asarray(0.5, jnp.float64))]))
+    for (particles,), length in zip(results, lengths):
+        expected = np.asarray(jitted(jnp.asarray(length, jnp.float64), jax_segment, jax_beam))
+        # The kicks alone: the drifts' share is the same in both packages.
+        drifted.elements[0].length = torch.tensor(length + 0.2, dtype=F64)
+        before = drifted.track(beam).particles.numpy()
+        kicks, expected_kicks = particles - before, expected - before
+        for column in (1, 3, 5):
+            largest = np.abs(expected_kicks[:, column]).max()
+            assert largest > 0
+            np.testing.assert_allclose(kicks[:, column], expected_kicks[:, column], rtol=0,
+                                       atol=KICK_BOUND * largest)
+
+
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+def test_space_charge_gradient_compiles_on_the_operators(sc_beams, grid):
+    """Path 5: ``d sum(px^2) / d length`` of the first drift (``space_charge_grad``
+    of ``scripts/bench_all.py:426-433``), the backward compiled by
+    AOTAutograd on the operators too, against ``jax.grad`` under
+    ``jax.jit``."""
+    jax_beam, beam = sc_beams
+    jax_segment = _jax_sc_segment(GRIDS[grid])
+    segment = segment_to_torch(jax_segment)
+    lengths = (0.1, 0.13)
+
+    def run(f, length):
+        length = torch.tensor(length, dtype=F64, requires_grad=True)
+        segment.elements[0].length = length
+        value = f(segment, beam)
+        return value, torch.autograd.grad(value, length)[0]
+
+    graphs = []
+    results = _compiled_matches_eager(lambda s, b: torch.sum(torch.square(s.track(b).px)), run,
+                                      lengths, backend=_recording(graphs))
+    assert len(graphs) == 2  # forward and backward
+    _assert_kernel_operators(graphs, grid)
+    value_and_grad = jax.jit(jax.value_and_grad(
+        lambda length, s, b: jnp.sum(jnp.square(_jax_sc_track(length, s, b)[:, 1]))
+    ))
+    for (value, grad), length in zip(results, lengths):
+        expected_value, expected_grad = value_and_grad(
+            jnp.asarray(length, jnp.float64), jax_segment, jax_beam
+        )
+        assert float(expected_grad) != 0
+        # The kicks' own spread under jax.jit (KICK_BOUND) reaches the loss
+        # and its derivative at the same share.
+        np.testing.assert_allclose(value, float(expected_value), rtol=10 * KICK_BOUND)
+        np.testing.assert_allclose(grad, float(expected_grad), rtol=10 * KICK_BOUND)
