@@ -8,7 +8,7 @@ from typing import Any
 
 import torch
 
-from cheetah_tpu_torch.accelerator.element import Element, any_nonzero
+from cheetah_tpu_torch.accelerator.element import Element, any_nonzero, host_bool
 from cheetah_tpu_torch.constants import speed_of_light
 from cheetah_tpu_torch.ops.transfer_maps import matrix7, with_entries
 from cheetah_tpu_torch.particles import Beam, ParameterBeam, ParticleBeam
@@ -118,11 +118,11 @@ class Cavity(Element):
             self._voltage_is_off = False
             return
         voltage, phase = voltage.detach().cpu(), phase.detach().cpu()
-        self._voltage_is_off = not self.voltage.requires_grad and bool(torch.all(voltage == 0))
+        self._voltage_is_off = not self.voltage.requires_grad and host_bool(torch.all(voltage == 0))
         if self.cavity_type != "standing_wave":
             return
         at_crossing = (torch.abs(torch.remainder(phase, 180.0) - 90.0) < 1e-3) & (voltage != 0)
-        if bool(torch.any(at_crossing)):
+        if host_bool(torch.any(at_crossing)):
             warnings.warn(
                 f"Cavity {getattr(self, 'name', '?')} is at a zero-crossing "
                 "phase (+-90 deg) with non-zero voltage: the standing-wave "

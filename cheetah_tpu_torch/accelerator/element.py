@@ -25,6 +25,7 @@ from torch import nn
 
 from cheetah_tpu_torch.particles import Beam, ParameterBeam, ParticleBeam, Species
 from cheetah_tpu_torch.utils.device import as_float_tensor, check_module_device
+from cheetah_tpu_torch.utils.profiling import count, span
 from cheetah_tpu_torch.utils.names import UniqueNameGenerator
 from cheetah_tpu_torch.utils.names import sanitize_name as _sanitize
 from cheetah_tpu_torch.utils.warnings import DirtyNameWarning, PhysicsWarning
@@ -43,18 +44,26 @@ def sum_element_lengths(lengths: list[torch.Tensor]) -> torch.Tensor:
     return total
 
 
+def host_bool(value: torch.Tensor) -> bool:
+    """``bool(value)``, read on the host (a device sync on the card), counted
+    in the ``host_reads`` counter of :mod:`cheetah_tpu_torch.utils.profiling`."""
+    count("host_reads")
+    return bool(value)
+
+
 def num_pieces(length: torch.Tensor, resolution: torch.Tensor | float) -> int:
     """How many pieces of equal length ``split`` cuts ``length`` into so that
     none is longer than ``resolution``: ``ceil(max |length| / resolution)``,
-    read on the host. A gradient on ``length`` still reaches the pieces,
-    which are ``length / count``."""
+    read on the host (counted in ``host_reads``). A gradient on ``length``
+    still reaches the pieces, which are ``length / count``."""
+    count("host_reads")
     return int(torch.ceil(torch.max(torch.abs(length.detach())) / resolution))
 
 
 def any_nonzero(value: torch.Tensor) -> bool:
     """``bool(any(value != 0))``, read on the host: an ``is_active`` test for
     the set-up passes, never for tracking."""
-    return bool(torch.any(value.detach() != 0))
+    return host_bool(torch.any(value.detach() != 0))
 
 
 def second_order_moment_transport(
@@ -249,30 +258,33 @@ class Element(nn.Module):
         """Linear tracking: the moments' congruence ``mu' = M mu``,
         ``cov' = M cov M^T`` for a :class:`ParameterBeam`, the batched
         ``(..., N, 7) @ (..., 7, 7)^T`` matmul for a :class:`ParticleBeam`."""
-        tm = self.first_order_transfer_map(incoming.energy, incoming.species)
-        if isinstance(incoming, ParameterBeam):
-            return ParameterBeam(
-                torch.matmul(tm, incoming.mu[..., None]).squeeze(-1),
-                tm @ incoming.cov @ tm.transpose(-1, -2),
+        with span("ctt.maps"):
+            tm = self.first_order_transfer_map(incoming.energy, incoming.species)
+        with span("ctt.transport"):
+            if isinstance(incoming, ParameterBeam):
+                return ParameterBeam(
+                    torch.matmul(tm, incoming.mu[..., None]).squeeze(-1),
+                    tm @ incoming.cov @ tm.transpose(-1, -2),
+                    incoming.energy,
+                    total_charge=incoming.total_charge,
+                    s=incoming.s + self.length,
+                    species=incoming.species,
+                )
+            return ParticleBeam(
+                torch.matmul(incoming.particles, tm.transpose(-1, -2)),
                 incoming.energy,
-                total_charge=incoming.total_charge,
+                particle_charges=incoming.particle_charges,
+                survival_probabilities=incoming.survival_probabilities,
                 s=incoming.s + self.length,
                 species=incoming.species,
             )
-        return ParticleBeam(
-            torch.matmul(incoming.particles, tm.transpose(-1, -2)),
-            incoming.energy,
-            particle_charges=incoming.particle_charges,
-            survival_probabilities=incoming.survival_probabilities,
-            s=incoming.s + self.length,
-            species=incoming.species,
-        )
 
     def _track_second_order(self, incoming: Beam) -> Beam:
         """Second-order tracking, ``out_i = sum_jk T_ijk in_j in_k``; a
         :class:`ParameterBeam`'s Gaussian moments go through the quadratic
         map exactly (:func:`second_order_moment_transport`)."""
-        T = self.second_order_transfer_map(incoming.energy, incoming.species)
+        with span("ctt.maps"):
+            T = self.second_order_transfer_map(incoming.energy, incoming.species)
         return transport_second_order(T, incoming, self.length)
 
     def _track_drift_kick_drift(self, incoming: Beam) -> Beam:
@@ -450,7 +462,7 @@ def _nested_equal(a: "Element", b: "Element") -> bool:
 def _features_equal(a: Any, b: Any) -> bool:
     if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
         a, b = torch.as_tensor(a), torch.as_tensor(b)
-        return a.shape == b.shape and not bool(torch.any(a != b.to(a.device)))
+        return a.shape == b.shape and not host_bool(torch.any(a != b.to(a.device)))
     if isinstance(a, Element) or isinstance(b, Element):
         return isinstance(a, Element) and isinstance(b, Element) and _nested_equal(a, b)
     if isinstance(a, nn.ModuleList) or (
@@ -487,24 +499,25 @@ def transport_second_order(T: torch.Tensor, incoming: Beam, length: torch.Tensor
     """The beam after the quadratic map ``T`` over ``length``: the moments'
     Gaussian closure for a :class:`ParameterBeam`, the map applied to every
     particle of a :class:`ParticleBeam`."""
-    if isinstance(incoming, ParameterBeam):
-        mu, cov = second_order_moment_transport(T, incoming.mu, incoming.cov)
-        return ParameterBeam(
-            mu,
-            cov,
+    with span("ctt.transport"):
+        if isinstance(incoming, ParameterBeam):
+            mu, cov = second_order_moment_transport(T, incoming.mu, incoming.cov)
+            return ParameterBeam(
+                mu,
+                cov,
+                incoming.energy,
+                total_charge=incoming.total_charge,
+                s=incoming.s + length,
+                species=incoming.species,
+            )
+        return ParticleBeam(
+            apply_second_order_map(T, incoming.particles),
             incoming.energy,
-            total_charge=incoming.total_charge,
+            particle_charges=incoming.particle_charges,
+            survival_probabilities=incoming.survival_probabilities,
             s=incoming.s + length,
             species=incoming.species,
         )
-    return ParticleBeam(
-        apply_second_order_map(T, incoming.particles),
-        incoming.energy,
-        particle_charges=incoming.particle_charges,
-        survival_probabilities=incoming.survival_probabilities,
-        s=incoming.s + length,
-        species=incoming.species,
-    )
 
 
 def dkd_outgoing(

@@ -8,6 +8,7 @@ from cheetah_tpu_torch.accelerator.element import (
     Element,
     any_nonzero,
     dkd_outgoing,
+    host_bool,
     num_pieces,
     require_particle_beam,
 )
@@ -171,8 +172,8 @@ class Quadrupole(Element):
         if not (
             self.tracking_method == other.tracking_method
             and self.misalignment.shape == other.misalignment.shape
-            and bool(torch.all(self.misalignment == other.misalignment))
-            and bool(torch.all(self.tilt == other.tilt))
+            and host_bool(torch.all(self.misalignment == other.misalignment))
+            and host_bool(torch.all(self.tilt == other.tilt))
         ):
             return None
         return Quadrupole(

@@ -35,6 +35,7 @@ from cheetah_tpu_torch.accelerator.drift import Drift
 from cheetah_tpu_torch.accelerator.element import (
     Element,
     beam_device,
+    host_bool,
     sum_element_lengths,
     transport_second_order,
 )
@@ -43,6 +44,7 @@ from cheetah_tpu_torch.accelerator.superimposed import Superimposed
 from cheetah_tpu_torch.particles import Beam, ParticleBeam, Species
 from cheetah_tpu_torch.utils.device import check_module_device
 from cheetah_tpu_torch.utils.names import merge_element_names
+from cheetah_tpu_torch.utils.profiling import span
 
 
 class Segment(Element):
@@ -324,11 +326,12 @@ class Segment(Element):
         transfer map applied with one matmul; the others track one by one."""
         if not self.elements:
             return incoming
-        if self.is_skippable:
-            return self._track_first_order(incoming)
-        for todo in self._plan():
-            incoming = todo._track(incoming)
-        return incoming
+        with span("ctt.segment.track"):
+            if self.is_skippable:
+                return self._track_first_order(incoming)
+            for todo in self._plan():
+                incoming = todo._track(incoming)
+            return incoming
 
     def track_checkpointed(self, incoming: Beam) -> Beam:
         """:meth:`track` with each plan entry (a fused run or an element that
@@ -341,11 +344,12 @@ class Segment(Element):
         Tracking draws no random numbers, so no generator state is saved.
         """
         check_module_device(self, beam_device(incoming))
-        for todo in self._plan():
-            incoming = checkpoint(
-                _track_todo, todo, incoming, use_reentrant=False, preserve_rng_state=False
-            )
-        return incoming
+        with span("ctt.segment.track"):
+            for todo in self._plan():
+                incoming = checkpoint(
+                    _track_todo, todo, incoming, use_reentrant=False, preserve_rng_state=False
+                )
+            return incoming
 
     def track_moments(
         self,
@@ -385,18 +389,19 @@ class Segment(Element):
                 return False
             return isinstance(todo, _SecondOrderBracket) or _is_second_order_leaf(todo)
 
-        todos = self._plan()
-        boundary = 0
-        for index, todo in enumerate(todos):
-            if not moment_transportable(todo):
-                boundary = index + 1
-        for todo in todos[:boundary]:
-            incoming = todo._track(incoming)
-        if isinstance(incoming, ParticleBeam):
-            incoming = incoming.as_parameter_beam()
-        for todo in todos[boundary:]:
-            incoming = todo._track(incoming)
-        return incoming
+        with span("ctt.segment.track"):
+            todos = self._plan()
+            boundary = 0
+            for index, todo in enumerate(todos):
+                if not moment_transportable(todo):
+                    boundary = index + 1
+            for todo in todos[:boundary]:
+                incoming = todo._track(incoming)
+            if isinstance(incoming, ParticleBeam):
+                incoming = incoming.as_parameter_beam()
+            for todo in todos[boundary:]:
+                incoming = todo._track(incoming)
+            return incoming
 
     def track_with_readings(self, incoming: Beam) -> tuple[Beam, dict[str, torch.Tensor]]:
         """Track a beam and collect the readings of the observers on the
@@ -419,24 +424,25 @@ class Segment(Element):
             pending.clear()
             return beam
 
-        for element in self.elements:
-            if isinstance(element, (Segment, Superimposed)):
-                if _contains_active_observer(element):
+        with span("ctt.segment.track"):
+            for element in self.elements:
+                if isinstance(element, (Segment, Superimposed)):
+                    if _contains_active_observer(element):
+                        incoming = flush(incoming)
+                        sub_segment = (
+                            element if isinstance(element, Segment) else element._segment()
+                        )
+                        incoming, sub_readings = sub_segment.track_with_readings(incoming)
+                        readings.update(sub_readings)
+                    else:
+                        pending.append(element)
+                elif _is_active_observer(element):
                     incoming = flush(incoming)
-                    sub_segment = (
-                        element if isinstance(element, Segment) else element._segment()
-                    )
-                    incoming, sub_readings = sub_segment.track_with_readings(incoming)
-                    readings.update(sub_readings)
+                    readings[element.name] = element.observe(incoming)
+                    incoming = element._track(incoming)
                 else:
                     pending.append(element)
-            elif _is_active_observer(element):
-                incoming = flush(incoming)
-                readings[element.name] = element.observe(incoming)
-                incoming = element._track(incoming)
-            else:
-                pending.append(element)
-        return flush(incoming), readings
+            return flush(incoming), readings
 
     def beam_along_segment_generator(
         self, incoming: Beam, resolution: torch.Tensor | float | None = None
@@ -523,19 +529,20 @@ class Segment(Element):
         non-skippable elements, then fold the linear runs next to
         ``second_order`` elements into their T-tensors
         (:meth:`_fuse_second_order_brackets`)."""
-        todos: list[Element] = []
-        run: list[Element] = []
-        for element in self.elements:
-            if element.is_skippable:
-                run.append(element)
-                continue
+        with span("ctt.plan"):
+            todos: list[Element] = []
+            run: list[Element] = []
+            for element in self.elements:
+                if element.is_skippable:
+                    run.append(element)
+                    continue
+                if run:
+                    todos.append(_run(run))
+                    run = []
+                todos.append(element)
             if run:
                 todos.append(_run(run))
-                run = []
-            todos.append(element)
-        if run:
-            todos.append(_run(run))
-        return self._fuse_second_order_brackets(todos)
+            return self._fuse_second_order_brackets(todos)
 
     @staticmethod
     def _fuse_second_order_brackets(todos: list[Element]) -> list[Element]:
@@ -812,7 +819,7 @@ def _is_active(element: Element) -> bool:
 
 def _lengths_nonzero(elements) -> list[bool]:
     """Per element ``any(length != 0)``, read on the host."""
-    return [bool(torch.any(element.length.detach() != 0)) for element in elements]
+    return [host_bool(torch.any(element.length.detach() != 0)) for element in elements]
 
 
 def _is_second_order_leaf(element: Element) -> bool:
@@ -877,18 +884,19 @@ class _SecondOrderBracket(Element):
         self, energy: torch.Tensor, species: Species
     ) -> torch.Tensor:
         """The bracket's folded 7x7x7 tensor ``R_il T_ljk M_ja M_kb``."""
-        T = self.element.second_order_transfer_map(energy, species)
-        if len(self.upstream):
-            M = torch.eye(7, dtype=T.dtype, device=T.device)
-            for part in self.upstream:
-                M = part.first_order_transfer_map(energy, species) @ M
-            T = torch.einsum("...ijk,...ja,...kb->...iab", T, M, M)
-        if len(self.downstream):
-            R = torch.eye(7, dtype=T.dtype, device=T.device)
-            for part in self.downstream:
-                R = part.first_order_transfer_map(energy, species) @ R
-            T = torch.einsum("...il,...ljk->...ijk", R, T)
-        return T
+        with span("ctt.maps"):
+            T = self.element.second_order_transfer_map(energy, species)
+            if len(self.upstream):
+                M = torch.eye(7, dtype=T.dtype, device=T.device)
+                for part in self.upstream:
+                    M = part.first_order_transfer_map(energy, species) @ M
+                T = torch.einsum("...ijk,...ja,...kb->...iab", T, M, M)
+            if len(self.downstream):
+                R = torch.eye(7, dtype=T.dtype, device=T.device)
+                for part in self.downstream:
+                    R = part.first_order_transfer_map(energy, species) @ R
+                T = torch.einsum("...il,...ljk->...ijk", R, T)
+            return T
 
     def _track(self, incoming: Beam) -> Beam:
         T = self.fused_second_order_transfer_map(incoming.energy, incoming.species)

@@ -6,7 +6,7 @@ import math
 
 import torch
 
-from cheetah_tpu_torch.accelerator.element import Element, any_nonzero, num_pieces
+from cheetah_tpu_torch.accelerator.element import Element, any_nonzero, host_bool, num_pieces
 from cheetah_tpu_torch.ops.transfer_maps import matrix7, misalignment_matrix
 from cheetah_tpu_torch.particles.species import Species
 from cheetah_tpu_torch.utils.names import merge_element_names
@@ -109,7 +109,7 @@ class Solenoid(Element):
     def merge(self, other: "Solenoid") -> "Solenoid | None":
         if not (
             self.misalignment.shape == other.misalignment.shape
-            and bool(torch.all(self.misalignment == other.misalignment))
+            and host_bool(torch.all(self.misalignment == other.misalignment))
         ):
             return None
         return Solenoid(

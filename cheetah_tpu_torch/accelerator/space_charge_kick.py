@@ -38,6 +38,7 @@ from cheetah_tpu_torch.ops import cic_kernels
 from cheetah_tpu_torch.ops.cloud_in_cell import cloud_in_cell_charge_deposition, grid_counts
 from cheetah_tpu_torch.particles import ParticleBeam
 from cheetah_tpu_torch.utils.device import constant_cache
+from cheetah_tpu_torch.utils.profiling import span
 
 
 def _all_reduce(tensor: torch.Tensor, axis) -> torch.Tensor:
@@ -220,24 +221,25 @@ class SpaceChargeKick(Element):
         grid_dimensions: torch.Tensor,
     ) -> torch.Tensor:
         """CIC deposit, normalised to density, zero-padded to the 2x grid."""
-        charge_grid = cloud_in_cell_charge_deposition(
-            positions=positions,
-            bins=self.grid_shape,
-            extent=torch.stack([-grid_dimensions, grid_dimensions], dim=-1),
-            charges=beam.particle_charges * beam.survival_probabilities,
-        )
-        if self.particle_axis is not None:
-            # Each rank deposited its own particles; the grid is their sum.
-            charge_grid = _all_reduce(charge_grid, self.particle_axis)
-        # Not torch.prod: its backward looks for zero factors with
-        # ``nonzero``, a device sync in every backward that no CUDA graph
-        # can capture.
-        inv_cell_volume = 1.0 / (cell_size[..., 0] * cell_size[..., 1] * cell_size[..., 2])
-        charge_density = charge_grid * inv_cell_volume[..., None, None, None]
+        with span("ctt.sc.deposit"):
+            charge_grid = cloud_in_cell_charge_deposition(
+                positions=positions,
+                bins=self.grid_shape,
+                extent=torch.stack([-grid_dimensions, grid_dimensions], dim=-1),
+                charges=beam.particle_charges * beam.survival_probabilities,
+            )
+            if self.particle_axis is not None:
+                # Each rank deposited its own particles; the grid is their sum.
+                charge_grid = _all_reduce(charge_grid, self.particle_axis)
+            # Not torch.prod: its backward looks for zero factors with
+            # ``nonzero``, a device sync in every backward that no CUDA graph
+            # can capture.
+            inv_cell_volume = 1.0 / (cell_size[..., 0] * cell_size[..., 1] * cell_size[..., 2])
+            charge_density = charge_grid * inv_cell_volume[..., None, None, None]
 
-        nx, ny, nt = self.grid_shape
-        # Out of place (zeros after each axis), so that torch.func transforms it.
-        return torch.nn.functional.pad(charge_density, (0, nt, 0, ny, 0, nx))
+            nx, ny, nt = self.grid_shape
+            # Out of place (zeros after each axis), so that torch.func transforms it.
+            return torch.nn.functional.pad(charge_density, (0, nt, 0, ny, 0, nx))
 
     def _solve_poisson_equation(
         self,
@@ -248,15 +250,17 @@ class SpaceChargeKick(Element):
     ) -> torch.Tensor:
         """FFT convolution on the 2x grid, cropped to the physical octant."""
         rho = self._charge_density(beam, positions, cell_size, grid_dimensions)
-        igf = self._integrated_green_function(beam.relativistic_gamma, cell_size)
+        with span("ctt.sc.green_function"):
+            igf = self._integrated_green_function(beam.relativistic_gamma, cell_size)
 
-        dims = (-3, -2, -1)
-        potential_ft = torch.fft.rfftn(rho, dim=dims) * torch.fft.rfftn(igf, dim=dims)
-        potential = (1.0 / (4 * math.pi * epsilon_0)) * torch.fft.irfftn(
-            potential_ft, s=rho.shape[-3:], dim=dims
-        )
-        nx, ny, nt = self.grid_shape
-        return potential[..., :nx, :ny, :nt]
+        with span("ctt.sc.fft"):
+            dims = (-3, -2, -1)
+            potential_ft = torch.fft.rfftn(rho, dim=dims) * torch.fft.rfftn(igf, dim=dims)
+            potential = (1.0 / (4 * math.pi * epsilon_0)) * torch.fft.irfftn(
+                potential_ft, s=rho.shape[-3:], dim=dims
+            )
+            nx, ny, nt = self.grid_shape
+            return potential[..., :nx, :ny, :nt]
 
     def _force_fields(
         self,
@@ -288,13 +292,14 @@ class SpaceChargeKick(Element):
             shape[dim] = n
             return grad * interior.reshape(shape)
 
-        inv_cell = 1.0 / cell_size
-        scale = -igamma2[..., None, None, None]
-        return torch.stack(
-            [scale * central_diff(potential, dim, inv_cell[..., axis])
-             for axis, dim in enumerate((-3, -2, -1))],
-            dim=1,
-        )
+        with span("ctt.sc.fields"):
+            inv_cell = 1.0 / cell_size
+            scale = -igamma2[..., None, None, None]
+            return torch.stack(
+                [scale * central_diff(potential, dim, inv_cell[..., axis])
+                 for axis, dim in enumerate((-3, -2, -1))],
+                dim=1,
+            )
 
     # ------------------------------------------------------------------
     # Tracking
@@ -321,66 +326,77 @@ class SpaceChargeKick(Element):
                 species=incoming.species,
             )
 
-        # Flatten all vector dims to one batch dim (reversed at the end).
-        outgoing_vector_shape = torch.broadcast_shapes(
-            incoming.particles.shape[:-2],
-            incoming.energy.shape,
-            incoming.particle_charges.shape[:-1],
-            incoming.survival_probabilities.shape[:-1],
-            self.effect_length.shape,
-        )
-        vector_shape = torch.broadcast_shapes(outgoing_vector_shape, (1,))
-        n = incoming.num_particles
-        flattened = ParticleBeam(
-            particles=incoming.particles.expand(*vector_shape, n, 7).reshape(-1, n, 7),
-            energy=incoming.energy.expand(vector_shape).reshape(-1),
-            particle_charges=incoming.particle_charges.expand(*vector_shape, n).reshape(-1, n),
-            survival_probabilities=incoming.survival_probabilities.expand(
-                *vector_shape, n
-            ).reshape(-1, n),
-            # The incoming s, though unused here: a default would be built
-            # from a Python number on the host on every call.
-            s=incoming.s,
-            species=incoming.species,
-        )
-        effect_length = self.effect_length.expand(vector_shape).reshape(-1)
+        with span("ctt.sc.kick"):
+            return self._kick(incoming)
 
-        # Grid geometry from the beam sigmas (the single-pass raw moments);
-        # over a particle axis, from the global moments, so that every rank
-        # sizes the same grid.
-        if self.particle_axis is not None:
-            sigma_x, sigma_y, sigma_tau = self._global_weighted_std(
-                torch.stack([flattened.x, flattened.y, flattened.tau]),
-                flattened.survival_probabilities,
+    def _kick(self, incoming: ParticleBeam) -> ParticleBeam:
+        """The kick on a beam of float32 or wider."""
+        with span("ctt.sc.grid"):
+            # Flatten all vector dims to one batch dim (reversed at the end).
+            outgoing_vector_shape = torch.broadcast_shapes(
+                incoming.particles.shape[:-2],
+                incoming.energy.shape,
+                incoming.particle_charges.shape[:-1],
+                incoming.survival_probabilities.shape[:-1],
+                self.effect_length.shape,
             )
-        else:
-            sigma_x, sigma_y, sigma_tau = flattened.sigma_x, flattened.sigma_y, flattened.sigma_tau
-        grid_dimensions = torch.stack(
-            [
-                self.grid_extent_x * sigma_x,
-                self.grid_extent_y * sigma_y,
-                self.grid_extent_tau * sigma_tau,
-            ],
-            dim=-1,
-        )
-        cell_size = 2 * grid_dimensions / grid_counts(
-            self.grid_shape, grid_dimensions.dtype, grid_dimensions.device
-        )
-        dt = effect_length / (speed_of_light * flattened.relativistic_beta)
+            vector_shape = torch.broadcast_shapes(outgoing_vector_shape, (1,))
+            n = incoming.num_particles
+            flattened = ParticleBeam(
+                particles=incoming.particles.expand(*vector_shape, n, 7).reshape(-1, n, 7),
+                energy=incoming.energy.expand(vector_shape).reshape(-1),
+                particle_charges=incoming.particle_charges.expand(*vector_shape, n).reshape(-1, n),
+                survival_probabilities=incoming.survival_probabilities.expand(
+                    *vector_shape, n
+                ).reshape(-1, n),
+                # The incoming s, though unused here: a default would be built
+                # from a Python number on the host on every call.
+                s=incoming.s,
+                species=incoming.species,
+            )
+            effect_length = self.effect_length.expand(vector_shape).reshape(-1)
 
-        xp_coordinates = flattened.to_xyz_pxpypz()
-        # x, y, z: a strided view, no index tensor to copy to the card.
-        positions = xp_coordinates[..., 0:5:2]
+            # Grid geometry from the beam sigmas (the single-pass raw moments);
+            # over a particle axis, from the global moments, so that every rank
+            # sizes the same grid.
+            if self.particle_axis is not None:
+                sigma_x, sigma_y, sigma_tau = self._global_weighted_std(
+                    torch.stack([flattened.x, flattened.y, flattened.tau]),
+                    flattened.survival_probabilities,
+                )
+            else:
+                sigma_x, sigma_y, sigma_tau = (
+                    flattened.sigma_x, flattened.sigma_y, flattened.sigma_tau
+                )
+            grid_dimensions = torch.stack(
+                [
+                    self.grid_extent_x * sigma_x,
+                    self.grid_extent_y * sigma_y,
+                    self.grid_extent_tau * sigma_tau,
+                ],
+                dim=-1,
+            )
+            cell_size = 2 * grid_dimensions / grid_counts(
+                self.grid_shape, grid_dimensions.dtype, grid_dimensions.device
+            )
+            dt = effect_length / (speed_of_light * flattened.relativistic_beta)
+
+            xp_coordinates = flattened.to_xyz_pxpypz()
+            # x, y, z: a strided view, no index tensor to copy to the card.
+            positions = xp_coordinates[..., 0:5:2]
         grids = self._force_fields(flattened, positions, cell_size, grid_dimensions)
-        normalized = (positions + grid_dimensions[..., None, :]) / cell_size[..., None, :]
-        (values,) = cic_kernels.differentiable_gather(grids, normalized, cic_kernels.VALUE)
-        forces = values * elementary_charge  # (B, 3, N)
+        with span("ctt.sc.grid"):
+            normalized = (positions + grid_dimensions[..., None, :]) / cell_size[..., None, :]
 
-        # The kick adds to the momenta (columns 1, 3, 5), out of place.
-        xp_coordinates = xp_coordinates.index_add(
-            -1, _momentum_columns(xp_coordinates.device),
-            (forces * dt[:, None, None]).transpose(1, 2),
-        )
+        with span("ctt.sc.gather"):
+            (values,) = cic_kernels.differentiable_gather(grids, normalized, cic_kernels.VALUE)
+            forces = values * elementary_charge  # (B, 3, N)
+
+            # The kick adds to the momenta (columns 1, 3, 5), out of place.
+            xp_coordinates = xp_coordinates.index_add(
+                -1, _momentum_columns(xp_coordinates.device),
+                (forces * dt[:, None, None]).transpose(1, 2),
+            )
 
         return ParticleBeam.from_xyz_pxpypz(
             xp_coordinates=xp_coordinates.reshape(*outgoing_vector_shape, n, 7),

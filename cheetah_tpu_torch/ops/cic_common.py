@@ -23,6 +23,8 @@ from typing import Callable, NamedTuple, Sequence
 
 import torch
 
+from cheetah_tpu_torch.utils import profiling
+
 Orders = Sequence[tuple[int, int, int]]
 
 #: The single value order, as the space-charge kick uses it.
@@ -192,6 +194,15 @@ def window_blocks(particles: int, limits: DeviceLimits, shared: int) -> int:
 
 #: The namespace of the port's operators: ``torch.ops.cheetah_tpu_torch``.
 NAMESPACE = "cheetah_tpu_torch"
+
+
+def count_launch(wrapper: Callable) -> None:
+    """Count a CUDA implementation's launch under its wrapper's name in the
+    counters of :mod:`cheetah_tpu_torch.utils.profiling`, and in the
+    wrapper's ``launches``, which the benchmark's harness
+    (``portbench/harness.py``) reads."""
+    profiling.count(wrapper.__name__)
+    wrapper.launches += 1
 
 
 def define_operator(

@@ -44,9 +44,9 @@ everything that depends on the particle count (the zero-size branches, the
 launch geometry, the device's limits) stays inside the implementations: a
 program exported with a symbolic particle axis holds the operators, and
 launches the kernels when it is called on CUDA tensors. The CUDA
-implementations count their launches in ``deposit_multi_3d.launches`` and
-``gather_multi_3d.launches``, those of the tiled pair in the tiled
-wrappers' own ``launches``.
+implementations count their launches under the wrappers' names
+(``deposit_multi_3d``, ``gather_multi_3d`` and the tiled pair's) in
+:func:`cheetah_tpu_torch.utils.profiling.counters`.
 
 Gradients: :class:`GatherMulti` and :class:`DepositMulti` are the autograd
 closure of the pair (``pallas_cic.py:536-750``; the operators carry no
@@ -217,7 +217,7 @@ def _deposit_kernel(normalized, rows, histogram_shape, orders_flat) -> torch.Ten
     by ``deposit_reduce_kernel`` in a fixed order), else
     ``deposit_multi_kernel`` into int64 grids in a scratch allocated here;
     every add in fixed point, so the same inputs give the same bits on
-    every run. Counts its launch in ``deposit_multi_3d.launches``."""
+    every run. Counts its launch as ``deposit_multi_3d``."""
     batch, _, num_components, num_particles = rows.shape
     orders = orders_from_flat(orders_flat)
     normalized = normalized.contiguous()
@@ -250,7 +250,7 @@ def _deposit_kernel(normalized, rows, histogram_shape, orders_flat) -> torch.Ten
         batch, num_particles, num_components, *histogram_shape, group, copies,
         *orders_argument(orders),
     )
-    deposit_multi_3d.launches += 1
+    cic_common.count_launch(deposit_multi_3d)
     return out
 
 
@@ -278,8 +278,8 @@ def _gather_plain(grids, normalized, orders_flat) -> torch.Tensor:
 def _gather_kernel(grids, normalized, orders_flat) -> torch.Tensor:
     """``cic_gather_multi`` on CUDA tensors: ``gather_staged_kernel`` where a
     component of the grid fits shared memory (the value and raised order
-    sets), else ``gather_multi_kernel``. Counts its launch in
-    ``gather_multi_3d.launches``."""
+    sets), else ``gather_multi_kernel``. Counts its launch as
+    ``gather_multi_3d``."""
     orders = orders_from_flat(orders_flat)
     batch, num_components, nx, ny, nt = grids.shape
     num_particles = normalized.shape[1]
@@ -297,7 +297,7 @@ def _gather_kernel(grids, normalized, orders_flat) -> torch.Tensor:
         grids.data_ptr(), normalized.data_ptr(), out.data_ptr(),
         batch, num_particles, num_components, nx, ny, nt, *orders_argument(orders),
     )
-    gather_multi_3d.launches += 1
+    cic_common.count_launch(gather_multi_3d)
     return out
 
 

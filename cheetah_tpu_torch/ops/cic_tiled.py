@@ -69,8 +69,8 @@ run the plain versions, CUDA tensors launch the kernels or raise, fake
 tensors get the outputs' shapes; the plan's count scratch, sized from the
 particle count, and the deposit's int64 grids stay inside the CUDA
 implementations, and ``R`` and ``T`` are Python ints of the static grid. Each CUDA implementation counts its
-launches in its wrapper's ``launches``; :func:`tile_plan` counts its calls
-in ``calls``.
+launches under its wrapper's name (:func:`cic_common.count_launch`);
+:func:`tile_plan` counts its calls in ``calls``.
 """
 
 from __future__ import annotations
@@ -220,8 +220,8 @@ def _plan_plain(normalized, histogram_shape) -> tuple[torch.Tensor, ...]:
 
 def _plan_kernel(normalized, histogram_shape) -> tuple[torch.Tensor, ...]:
     """``cic_tile_plan`` on CUDA tensors: the counting-sort kernels of
-    ``cic_tiled.cu`` (two or three launches, counted once in
-    ``plan_tiles.launches``), whose plan equals :func:`tile_plan`'s
+    ``cic_tiled.cu`` (two or three launches, counted once as
+    ``plan_tiles``), whose plan equals :func:`tile_plan`'s
     exactly, the sort being stable."""
     batch, num_particles, _ = normalized.shape
     rows, num_tiles = _tiling(tuple(histogram_shape))
@@ -246,7 +246,7 @@ def _plan_kernel(normalized, histogram_shape) -> tuple[torch.Tensor, ...]:
         rank.data_ptr(), sorted_tile.data_ptr(), sorted_positions.data_ptr(),
         offsets.data_ptr(), batch, num_particles, rows, num_tiles,
     )
-    plan_tiles.launches += 1
+    cic_common.count_launch(plan_tiles)
     return sorted_tile, perm, offsets, sorted_positions, rank
 
 
@@ -448,8 +448,8 @@ def _deposit_kernel(normalized, rows, histogram_shape, orders_flat, *plan) -> to
     """``cic_deposit_tiled`` on CUDA tensors: ``deposit_tiled_kernel`` on the
     plan's sorted positions, sized by :func:`tiled_deposit_geometry`, into
     int64 grids in a scratch allocated here, every add in fixed point, so
-    the same inputs give the same bits on every run. Counts its launch in
-    ``deposit_multi_tiled_3d.launches``."""
+    the same inputs give the same bits on every run. Counts its launch as
+    ``deposit_multi_tiled_3d``."""
     plan = _given_plan(histogram_shape, *plan)
     orders = cic_common.orders_from_flat(orders_flat)
     batch, _, num_components, num_particles = rows.shape
@@ -476,7 +476,7 @@ def _deposit_kernel(normalized, rows, histogram_shape, orders_flat, *plan) -> to
         *histogram_shape, plan.rows_per_tile, plan.num_tiles, geometry.per_run,
         geometry.group, geometry.min_window_run, *cic_common.orders_argument(orders),
     )
-    deposit_multi_tiled_3d.launches += 1
+    cic_common.count_launch(deposit_multi_tiled_3d)
     return out
 
 
@@ -515,7 +515,7 @@ def _gather_kernel(grids, normalized, orders_flat, *plan) -> torch.Tensor:
     sets) or ``gather_tiled_kernel`` on the plan's sorted positions, which
     writes the outputs in sorted order, and ``unsort_kernel``, which moves
     them to the original indices through the plan's ``rank``. Counts its
-    launch in ``gather_multi_tiled_3d.launches``."""
+    launch as ``gather_multi_tiled_3d``."""
     orders = cic_common.orders_from_flat(orders_flat)
     histogram_shape = tuple(grids.shape[2:])
     plan = _given_plan(histogram_shape, *plan)
@@ -536,7 +536,7 @@ def _gather_kernel(grids, normalized, orders_flat, *plan) -> torch.Tensor:
         num_components, *histogram_shape, plan.rows_per_tile, plan.num_tiles, GATHER_PER_RUN,
         *cic_common.orders_argument(orders),
     )
-    gather_multi_tiled_3d.launches += 1
+    cic_common.count_launch(gather_multi_tiled_3d)
     return out
 
 

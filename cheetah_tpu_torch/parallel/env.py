@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from cheetah_tpu_torch.particles import Beam
+from cheetah_tpu_torch.utils.profiling import span
 
 
 class BatchedLatticeEnv(nn.Module):
@@ -102,16 +103,18 @@ class BatchedLatticeEnv(nn.Module):
         :return: ``(outgoing_beam, readings, reward)`` where reward has the
             settings' leading (instance) shape.
         """
-        with self._with_settings(settings) as segment:
-            if self.moments_only:
-                outgoing, readings = segment.track_moments(self.incoming), {}
-            else:
-                outgoing, readings = segment.track_with_readings(self.incoming)
-        if self.objective is not None:
-            reward = self.objective(outgoing, readings)
-        else:
-            reward = -torch.hypot(outgoing.sigma_x, outgoing.sigma_y)
-        return outgoing, readings, reward
+        with span("ctt.env.step"):
+            with self._with_settings(settings) as segment:
+                if self.moments_only:
+                    outgoing, readings = segment.track_moments(self.incoming), {}
+                else:
+                    outgoing, readings = segment.track_with_readings(self.incoming)
+            with span("ctt.env.readout"):
+                if self.objective is not None:
+                    reward = self.objective(outgoing, readings)
+                else:
+                    reward = -torch.hypot(outgoing.sigma_x, outgoing.sigma_y)
+            return outgoing, readings, reward
 
     def forward(self, settings: torch.Tensor) -> tuple[Beam, dict[str, torch.Tensor], torch.Tensor]:
         return self.step(settings)
@@ -136,5 +139,6 @@ class BatchedLatticeEnv(nn.Module):
             reward = self.reward(settings)
             return reward.sum(), reward
 
-        grads, reward = torch.func.grad(total_reward, has_aux=True)(settings.detach())
-        return settings.detach() + learning_rate * grads, reward.detach()
+        with span("ctt.env.grad_step"):
+            grads, reward = torch.func.grad(total_reward, has_aux=True)(settings.detach())
+            return settings.detach() + learning_rate * grads, reward.detach()

@@ -546,14 +546,25 @@ def _wrappers(cic_kernels, cic_tiled) -> dict:
 TILED_WRAPPERS = ("deposit_multi_tiled_3d", "gather_multi_tiled_3d", "plan_tiles")
 
 
+#: The CIC launch counters' readings at the last :func:`_reset_launches`.
+_LAUNCH_BASE: dict = {}
+
+
 def _reset_launches(wrappers: dict) -> None:
-    for wrapper in wrappers.values():
-        wrapper.launches = 0
+    """Count the wrappers' launches (``utils.profiling``'s counters) from now."""
+    from cheetah_tpu_torch.utils import profiling
+
+    counted = profiling.counters()
+    _LAUNCH_BASE.update({name: counted.get(name, 0) for name in wrappers})
 
 
 def _launches(wrappers: dict) -> dict:
+    """The wrappers' launches since :func:`_reset_launches`."""
+    from cheetah_tpu_torch.utils import profiling
+
     torch.cuda.synchronize()
-    return {name: wrapper.launches for name, wrapper in wrappers.items()}
+    counted = profiling.counters()
+    return {name: counted.get(name, 0) - _LAUNCH_BASE.get(name, 0) for name in wrappers}
 
 
 # ---------------------------------------------------------------------------

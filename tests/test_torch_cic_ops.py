@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from cheetah_tpu_torch.ops import cic_common, cic_kernels, cic_tiled
+from cheetah_tpu_torch.utils import profiling
 from test_torch_cic_plan import RAISED, _bits
 from test_torch_cic_tiled import _positions
 
@@ -90,6 +91,15 @@ def test_opcheck(name, grid, orders, batch, dtype):
     assert set(results.values()) == {"SUCCESS"}, results
 
 
+def _launches() -> list[int]:
+    """The CIC kernels' launch counters, by wrapper."""
+    counted = profiling.counters()
+    return [counted.get(name, 0) for name in (
+        "deposit_multi_3d", "gather_multi_3d", "deposit_multi_tiled_3d", "gather_multi_tiled_3d",
+        "plan_tiles",
+    )]
+
+
 @pytest.mark.parametrize("grid", GRIDS)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cpu_operators_are_the_plain_versions_bit_for_bit(grid, dtype):
@@ -102,10 +112,7 @@ def test_cpu_operators_are_the_plain_versions_bit_for_bit(grid, dtype):
     grids = torch.from_numpy(rng.normal(size=(2, 2, *shape)).astype(np_dtype))
     orders = ((0, 0, 0), (1, 0, 1), (0, 1, 0))
     flat = list(cic_common.orders_flat(orders))
-    counts = [wrapper.launches for wrapper in (
-        cic_kernels.deposit_multi_3d, cic_kernels.gather_multi_3d,
-        cic_tiled.deposit_multi_tiled_3d, cic_tiled.gather_multi_tiled_3d, cic_tiled.plan_tiles,
-    )]
+    counts = _launches()
 
     deposit = cic_kernels.DEPOSIT_MULTI(normalized, rows, list(shape), flat)
     assert torch.equal(
@@ -127,10 +134,7 @@ def test_cpu_operators_are_the_plain_versions_bit_for_bit(grid, dtype):
     gathered = cic_tiled.GATHER_TILED(grids, normalized, flat, *plan)
     want = cic_tiled.gather_multi_tiled_3d_reference(grids, normalized, orders, plan=plain_plan)
     assert all(torch.equal(_bits(g), _bits(w)) for g, w in zip(gathered, want))
-    assert counts == [wrapper.launches for wrapper in (
-        cic_kernels.deposit_multi_3d, cic_kernels.gather_multi_3d,
-        cic_tiled.deposit_multi_tiled_3d, cic_tiled.gather_multi_tiled_3d, cic_tiled.plan_tiles,
-    )]
+    assert counts == _launches()
     assert cic_kernels.LIBRARY.handle is None and cic_tiled.LIBRARY.handle is None
 
 

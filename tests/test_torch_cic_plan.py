@@ -26,6 +26,7 @@ import torch
 
 import cheetah_tpu_torch as ctt
 from cheetah_tpu_torch.ops import cic_common, cic_kernels, cic_tiled, nvcc
+from cheetah_tpu_torch.utils import profiling
 from test_torch_cic_tiled import ALL_ORDERS, SHAPES, _positions
 
 RAISED = ((1, 0, 0), (0, 1, 0), (0, 0, 1))
@@ -99,11 +100,11 @@ def test_plan_payload_is_the_positions_in_sorted_order(shape, dtype):
 
 def test_plan_tiles_runs_tile_plan_on_cpu_and_counts_its_calls():
     _, normalized, _ = _case(42, SHAPES[0], num_particles=300)
-    calls, launches = cic_tiled.tile_plan.calls, cic_tiled.plan_tiles.launches
+    calls, launches = cic_tiled.tile_plan.calls, profiling.counters().get("plan_tiles", 0)
     plan = cic_tiled.plan_tiles(normalized, SHAPES[0])
     plain = cic_tiled.tile_plan(normalized, SHAPES[0])
     assert cic_tiled.tile_plan.calls == calls + 2
-    assert cic_tiled.plan_tiles.launches == launches
+    assert profiling.counters().get("plan_tiles", 0) == launches
     for got, want in zip(plan, plain):
         assert torch.equal(_bits(got), _bits(want)) if torch.is_tensor(got) else got == want
 
@@ -195,10 +196,9 @@ def test_card_paths_pass_their_signatures(monkeypatch, wrapper, dtype):
     grids = torch.empty(batch, 3, *(SHAPES[0] if "tiled" in wrapper else (8, 8, 8)),
                         dtype=dtype, device="meta")
     rows = torch.empty(batch, 3, 2, num_particles, dtype=dtype, device="meta")
-    counter = getattr(cic_tiled, wrapper, None) or getattr(cic_kernels, wrapper)
-    before = counter.launches
+    before = profiling.counters().get(wrapper, 0)
     _CARD_CALLS[wrapper](normalized, grids, rows)
-    assert counter.launches == before + 1
+    assert profiling.counters()[wrapper] == before + 1
     names = [name for name, _ in calls]
     if wrapper.endswith("tiled_3d"):
         assert names == ["cic_tile_plan", f"cic_{wrapper.split('_')[0]}_tiled"]

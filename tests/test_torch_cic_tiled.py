@@ -27,6 +27,7 @@ from cheetah_tpu.ops.pallas_cic_tiled import (
     tiled_bounds_ok as jax_tiled_bounds_ok,
 )
 from cheetah_tpu_torch.ops import cic_kernels, cic_tiled
+from cheetah_tpu_torch.utils import profiling
 
 ALL_ORDERS = tuple(itertools.product((0, 1), repeat=3))
 F32_EPS = float(np.finfo(np.float32).eps)
@@ -246,13 +247,12 @@ def test_wrappers_dispatch_tiled_grids_to_the_tiled_plain_versions_on_cpu():
     rows = torch.from_numpy(rng.normal(size=(1, 2, 3, 500)).astype(np.float32))
     grids = torch.from_numpy(rng.normal(size=(1, 3, *BIG_SHAPE)).astype(np.float32))
     orders = ((0, 0, 0), (1, 0, 1))
-    counts = (cic_kernels.deposit_multi_3d.launches, cic_kernels.gather_multi_3d.launches,
-              cic_tiled.deposit_multi_tiled_3d.launches, cic_tiled.gather_multi_tiled_3d.launches)
+    names = ("deposit_multi_3d", "gather_multi_3d", "deposit_multi_tiled_3d",
+             "gather_multi_tiled_3d")
+    counts = [profiling.counters().get(name, 0) for name in names]
     grid = cic_kernels.deposit_multi_3d(normalized, rows, BIG_SHAPE, orders)
     values = cic_kernels.gather_multi_3d(grids, normalized, orders)
-    assert counts == (cic_kernels.deposit_multi_3d.launches, cic_kernels.gather_multi_3d.launches,
-                      cic_tiled.deposit_multi_tiled_3d.launches,
-                      cic_tiled.gather_multi_tiled_3d.launches)
+    assert counts == [profiling.counters().get(name, 0) for name in names]
     assert torch.equal(
         grid, cic_tiled.deposit_multi_tiled_3d_reference(normalized, rows, BIG_SHAPE, orders)
     )
