@@ -9,7 +9,8 @@ from __future__ import annotations
 import torch
 
 from cheetah_tpu_torch.accelerator.element import Element, any_nonzero
-from cheetah_tpu_torch.ops.transfer_maps import drift_matrix, with_entries
+from cheetah_tpu_torch.ops import fused_maps
+from cheetah_tpu_torch.ops.transfer_maps import corrector_matrix
 from cheetah_tpu_torch.particles.species import Species
 
 
@@ -37,8 +38,7 @@ class _Corrector(Element):
     def first_order_transfer_map(
         self, energy: torch.Tensor, species: Species
     ) -> torch.Tensor:
-        tm = drift_matrix(self.length, energy, species)
-        return with_entries(tm, {(self._kick_row, 6): self.angle})
+        return corrector_matrix(self.length, energy, species, {self._kick_row: self.angle})
 
     @property
     def is_skippable(self) -> bool:
@@ -61,6 +61,7 @@ class HorizontalCorrector(_Corrector):
     """
 
     _kick_row = 1
+    fused_opcode = fused_maps.HORIZONTAL_CORRECTOR
 
 
 class VerticalCorrector(_Corrector):
@@ -71,6 +72,7 @@ class VerticalCorrector(_Corrector):
     """
 
     _kick_row = 3
+    fused_opcode = fused_maps.VERTICAL_CORRECTOR
 
 
 class CombinedCorrector(Element):
@@ -84,6 +86,8 @@ class CombinedCorrector(Element):
     :param device: Device for parameters given as Python numbers; the GPU
         when ``None``.
     """
+
+    fused_opcode = fused_maps.COMBINED_CORRECTOR
 
     def __init__(
         self,
@@ -109,8 +113,9 @@ class CombinedCorrector(Element):
     def first_order_transfer_map(
         self, energy: torch.Tensor, species: Species
     ) -> torch.Tensor:
-        tm = drift_matrix(self.length, energy, species)
-        return with_entries(tm, {(1, 6): self.horizontal_angle, (3, 6): self.vertical_angle})
+        return corrector_matrix(
+            self.length, energy, species, {1: self.horizontal_angle, 3: self.vertical_angle}
+        )
 
     @property
     def is_skippable(self) -> bool:

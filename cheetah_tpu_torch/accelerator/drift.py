@@ -10,6 +10,7 @@ from cheetah_tpu_torch.accelerator.element import (
     num_pieces,
     require_particle_beam,
 )
+from cheetah_tpu_torch.ops import fused_maps
 from cheetah_tpu_torch.ops.transfer_maps import base_ttensor, drift_matrix, with_first_order
 from cheetah_tpu_torch.particles import Beam, ParticleBeam
 from cheetah_tpu_torch.particles.species import Species
@@ -29,6 +30,7 @@ class Drift(Element):
     """
 
     supported_tracking_methods = ["linear", "second_order", "drift_kick_drift"]
+    fused_opcode = fused_maps.DRIFT
 
     def __init__(
         self,

@@ -23,6 +23,7 @@ from typing import Any
 import torch
 from torch import nn
 
+from cheetah_tpu_torch.ops.transfer_maps import identity_transfer_map  # noqa: F401 (re-exported)
 from cheetah_tpu_torch.particles import Beam, ParameterBeam, ParticleBeam, Species
 from cheetah_tpu_torch.utils.device import as_float_tensor, check_module_device
 from cheetah_tpu_torch.utils.profiling import count, span
@@ -123,6 +124,14 @@ class Element(nn.Module):
 
     #: Tracking methods supported by the element type; the first is the default.
     supported_tracking_methods: list[str] = ["linear"]
+    #: The opcode (``ops/fused_maps.py`` ``KINDS``) with which one kernel
+    #: launch builds the first-order maps of a fused run of this type.
+    fused_opcode: int | None = None
+
+    def __init_subclass__(cls, **kwargs: Any) -> None:
+        super().__init_subclass__(**kwargs)
+        # A subclass may build another map: it inherits no opcode.
+        cls.fused_opcode = cls.__dict__.get("fused_opcode")
 
     def __init__(self) -> None:
         super().__init__()
@@ -549,12 +558,6 @@ def require_particle_beam(incoming: Beam) -> ParticleBeam:
             "Drift-kick-drift tracking is currently only supported for `ParticleBeam`."
         )
     return incoming
-
-
-def identity_transfer_map(energy: torch.Tensor) -> torch.Tensor:
-    """The 7x7 identity, broadcast over the energy's vector dimensions."""
-    eye = torch.eye(7, dtype=energy.dtype, device=energy.device)
-    return eye.expand(*energy.shape, 7, 7)
 
 
 def beam_device(beam: Beam) -> torch.device:

@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from cheetah_tpu_torch.accelerator.element import Element, identity_transfer_map
+from cheetah_tpu_torch.ops import fused_maps
 from cheetah_tpu_torch.particles import Beam
 from cheetah_tpu_torch.particles.species import Species
 
@@ -15,6 +16,8 @@ class Marker(Element):
     :param name: Unique identifier of the element.
     :param device: Device of its zero length; the GPU when ``None``.
     """
+
+    fused_opcode = fused_maps.MARKER
 
     def __init__(
         self,

@@ -12,10 +12,12 @@ from cheetah_tpu_torch.accelerator.element import (
     num_pieces,
     require_particle_beam,
 )
+from cheetah_tpu_torch.ops import fused_maps
 from cheetah_tpu_torch.ops.transfer_maps import (
     base_rmatrix,
     base_ttensor,
     combined_rotation_misalignment_matrix,
+    quadrupole_matrix,
     with_first_order,
 )
 from cheetah_tpu_torch.particles import Beam, ParticleBeam
@@ -42,6 +44,7 @@ class Quadrupole(Element):
     """
 
     supported_tracking_methods = ["linear", "second_order", "drift_kick_drift"]
+    fused_opcode = fused_maps.QUADRUPOLE
 
     def __init__(
         self,
@@ -72,17 +75,9 @@ class Quadrupole(Element):
     def first_order_transfer_map(
         self, energy: torch.Tensor, species: Species
     ) -> torch.Tensor:
-        R = base_rmatrix(
-            length=self.length,
-            k1=self.k1,
-            hx=torch.zeros_like(self.length),
-            species=species,
-            energy=energy,
+        return quadrupole_matrix(
+            self.length, self.k1, self.misalignment, self.tilt, energy, species
         )
-        R_entry, R_exit = combined_rotation_misalignment_matrix(
-            angle=self.tilt, misalignment=self.misalignment
-        )
-        return R_exit @ R @ R_entry
 
     def second_order_transfer_map(
         self, energy: torch.Tensor, species: Species

@@ -41,10 +41,11 @@ from cheetah_tpu_torch.accelerator.element import (
 )
 from cheetah_tpu_torch.accelerator.marker import Marker
 from cheetah_tpu_torch.accelerator.superimposed import Superimposed
+from cheetah_tpu_torch.ops import fused_maps
 from cheetah_tpu_torch.particles import Beam, ParticleBeam, Species
 from cheetah_tpu_torch.utils.device import check_module_device
 from cheetah_tpu_torch.utils.names import merge_element_names
-from cheetah_tpu_torch.utils.profiling import span
+from cheetah_tpu_torch.utils.profiling import count, span
 
 
 class Segment(Element):
@@ -316,10 +317,7 @@ class Segment(Element):
     ) -> torch.Tensor | None:
         if not self.is_skippable:
             return None
-        tm = torch.eye(7, dtype=energy.dtype, device=energy.device)
-        for element in self.elements:
-            tm = element.first_order_transfer_map(energy, species) @ tm
-        return tm
+        return run_transfer_map(list(self.elements), energy, species)
 
     def _track(self, incoming: Beam) -> Beam:
         """Consecutive skippable elements are fused into one composed
@@ -845,6 +843,31 @@ def _contains_active_observer(element: Element) -> bool:
     return _is_active_observer(element)
 
 
+def run_transfer_map(
+    elements: list[Element], energy: torch.Tensor, species: Species
+) -> torch.Tensor:
+    """The map ``M_{n-1} @ ... @ M_0 @ I`` of consecutive skippable
+    elements at ``energy``. One ``fused_run_map`` operator builds it where
+    every element's type names a kind it takes (``fused_opcode``) and
+    nothing tracks a gradient (:func:`fused_maps.takes`); otherwise the
+    elements' maps are built and multiplied one by one (the composite,
+    counted as ``fused_run_map_composite``)."""
+    opcodes = [element.fused_opcode for element in elements]
+    if opcodes and None not in opcodes:
+        parameters = [
+            getattr(element, name)
+            for element, opcode in zip(elements, opcodes)
+            for name in fused_maps.KINDS[opcode].attributes
+        ]
+        if fused_maps.takes(parameters, energy, species.mass_eV):
+            return fused_maps.FUSED_RUN_MAP(parameters, energy, species.mass_eV, opcodes)
+    count("fused_run_map_composite")
+    tm = torch.eye(7, dtype=energy.dtype, device=energy.device)
+    for element in elements:
+        tm = element.first_order_transfer_map(energy, species) @ tm
+    return tm
+
+
 def _run(elements: list[Element]) -> Segment:
     """A run of elements that tracking builds and throws away (a plan's
     fused run, the stretch between two observers). It takes a fixed name
@@ -887,14 +910,10 @@ class _SecondOrderBracket(Element):
         with span("ctt.maps"):
             T = self.element.second_order_transfer_map(energy, species)
             if len(self.upstream):
-                M = torch.eye(7, dtype=T.dtype, device=T.device)
-                for part in self.upstream:
-                    M = part.first_order_transfer_map(energy, species) @ M
+                M = run_transfer_map(list(self.upstream), energy, species)
                 T = torch.einsum("...ijk,...ja,...kb->...iab", T, M, M)
             if len(self.downstream):
-                R = torch.eye(7, dtype=T.dtype, device=T.device)
-                for part in self.downstream:
-                    R = part.first_order_transfer_map(energy, species) @ R
+                R = run_transfer_map(list(self.downstream), energy, species)
                 T = torch.einsum("...il,...ljk->...ijk", R, T)
             return T
 

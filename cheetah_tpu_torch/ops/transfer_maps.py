@@ -158,6 +158,24 @@ def drift_matrix(
     )
 
 
+def corrector_matrix(
+    length: torch.Tensor,
+    energy: torch.Tensor,
+    species: Species,
+    kicks: dict[int, torch.Tensor],
+) -> torch.Tensor:
+    """First-order map of a corrector: a drift whose affine column kicks
+    the momentum of each row of ``kicks`` (1 for px, 3 for py) by its angle."""
+    tm = drift_matrix(length, energy, species)
+    return with_entries(tm, {(row, 6): angle for row, angle in kicks.items()})
+
+
+def identity_transfer_map(energy: torch.Tensor) -> torch.Tensor:
+    """The 7x7 identity, broadcast over the energy's vector dimensions."""
+    eye = torch.eye(7, dtype=energy.dtype, device=energy.device)
+    return eye.expand(*energy.shape, 7, 7)
+
+
 def _rotation_entries(cs: torch.Tensor, sn: torch.Tensor) -> dict:
     return {
         (0, 0): cs,
@@ -208,6 +226,24 @@ def combined_rotation_misalignment_matrix(
     transposed = {(column, row): value for (row, column), value in rotation.items()}
     tm_exit = matrix7({**transposed, (0, 6): mis_x, (2, 6): mis_y}, vector_shape, cs)
     return tm_entry, tm_exit
+
+
+def quadrupole_matrix(
+    length: torch.Tensor,
+    k1: torch.Tensor,
+    misalignment: torch.Tensor,
+    tilt: torch.Tensor,
+    energy: torch.Tensor,
+    species: Species,
+) -> torch.Tensor:
+    """First-order map of a quadrupole: :func:`base_rmatrix` without
+    curvature inside the frames of its misalignment and tilt,
+    ``R_exit @ R @ R_entry``."""
+    R = base_rmatrix(
+        length=length, k1=k1, hx=torch.zeros_like(length), species=species, energy=energy
+    )
+    R_entry, R_exit = combined_rotation_misalignment_matrix(angle=tilt, misalignment=misalignment)
+    return R_exit @ R @ R_entry
 
 
 #: The ``(i, j, k)`` positions of the entries that :func:`base_ttensor` sets,

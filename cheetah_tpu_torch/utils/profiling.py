@@ -51,7 +51,10 @@ The counters: ``host_reads`` (each read of a tensor's value on the host in
 the elements' and segments' code, a device sync on the card) and the CIC
 operators' kernel launches by wrapper (``deposit_multi_3d``,
 ``gather_multi_3d``, ``deposit_multi_tiled_3d``, ``gather_multi_tiled_3d``,
-``plan_tiles``).
+``plan_tiles``); ``fused_run_map`` (each launch of the kernel that builds a
+fused linear run's map, ``ops/fused_maps.py``) and
+``fused_run_map_composite`` (each run whose map is built element by
+element instead).
 """
 
 from __future__ import annotations
@@ -77,7 +80,10 @@ _recording: "Recording | None" = None
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the counter ``name``."""
+    """Add ``n`` to the counter ``name``; nothing where ``torch.compile`` or
+    ``torch.export`` traces the code (the compiled program counts nothing)."""
+    if torch.compiler.is_compiling():
+        return
     _COUNTS[name] = _COUNTS.get(name, 0) + n
 
 
@@ -374,7 +380,9 @@ def compiled_stats(fn: Callable, *args) -> dict[str, float]:
     one operation each: their operands and results are tallied, but no
     FLOP inside them, on the card (the hand-written kernels) or on the CPU
     (their plain versions), as XLA's cost analysis counts none inside a
-    Pallas custom call."""
+    Pallas custom call. ``cheetah_tpu_torch::fused_run_map`` counts the
+    7x7 products of its plain version for every instance, which XLA counts
+    in the maps it fuses."""
     from torch.utils.flop_counter import FlopCounterMode
 
     tally = _ByteTally()

@@ -10,8 +10,10 @@ process per source, all at once, reporting ptxas's registers per kernel),
 holds each kernel against its plain PyTorch version on the card (and the
 tile plan's counting sort against ``torch.sort``), the deposits on every
 route their wrappers pick and on a crowded beam, times the gathers at the
-order sets the paths use and the deposits at C = 1 and 3, drives the paths
-of the port through the
+order sets the paths use and the deposits at C = 1 and 3, holds the fused
+linear run's map (``csrc/fused_maps.cu``, one launch per 32 elements)
+against the elements' maps multiplied one by one and times both, drives
+the paths of the port through the
 public entry points (the ARES EA env step and the 1M-particle space-charge
 segment, forward and with their gradients, the latter on the 32^3 grid of
 the untiled kernels and the 128^3 grid of the x-tiled ones), checks them
@@ -126,10 +128,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-#: Peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s and float32
-#: operations/s outside the tensor cores.
+#: Peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s, and float32
+#: and float64 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12
 
 NUM_PARTICLES = 1_000_000
 ALL_ORDERS = tuple(itertools.product((0, 1), repeat=3))
@@ -550,12 +553,21 @@ TILED_WRAPPERS = ("deposit_multi_tiled_3d", "gather_multi_tiled_3d", "plan_tiles
 _LAUNCH_BASE: dict = {}
 
 
+#: The fused-map operator's counters (``ops/fused_maps.py``): its kernel's
+#: launches and the runs built element by element instead.
+MAP_COUNTERS = ("fused_run_map", "fused_run_map_composite")
+#: ``fused_run_map_kernel``'s launches by path (:func:`_map_launches`), for
+#: the ``kernels`` line.
+MAP_LAUNCHES: dict = {}
+
+
 def _reset_launches(wrappers: dict) -> None:
-    """Count the wrappers' launches (``utils.profiling``'s counters) from now."""
+    """Count the wrappers' launches and the fused maps' counters
+    (``utils.profiling``'s counters) from now."""
     from cheetah_tpu_torch.utils import profiling
 
     counted = profiling.counters()
-    _LAUNCH_BASE.update({name: counted.get(name, 0) for name in wrappers})
+    _LAUNCH_BASE.update({name: counted.get(name, 0) for name in (*wrappers, *MAP_COUNTERS)})
 
 
 def _launches(wrappers: dict) -> dict:
@@ -565,6 +577,29 @@ def _launches(wrappers: dict) -> dict:
     torch.cuda.synchronize()
     counted = profiling.counters()
     return {name: counted.get(name, 0) - _LAUNCH_BASE.get(name, 0) for name in wrappers}
+
+
+def _map_launches(path: str, launches: int, composite: int = 0) -> int:
+    """The fused maps' counters since :func:`_reset_launches`, checked:
+    ``launches`` launches of the kernel and ``composite`` runs built
+    element by element. Keeps the launches under ``path``."""
+    from cheetah_tpu_torch.utils import profiling
+
+    counted = profiling.counters()
+    got = {name: counted.get(name, 0) - _LAUNCH_BASE.get(name, 0) for name in MAP_COUNTERS}
+    want = dict(zip(MAP_COUNTERS, (launches, composite)))
+    check(got == want, f"{path}: the fused maps counted {got}, not {want}")
+    MAP_LAUNCHES[path] = launches
+    return launches
+
+
+def _counted_maps(path: str, fn, launches: int):
+    """``fn()``, which launches the fused-map kernel ``launches`` times and
+    builds no run element by element (:func:`_map_launches`)."""
+    _reset_launches({})
+    result = fn()
+    _map_launches(path, launches)
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -1010,6 +1045,177 @@ def _bench_beam(ctt, num_particles, device, generator):
     )
 
 
+def _fused_run(ctt, dtype, instances=4096, repeats=1, seed=SEED, frames=False,
+               energy_per_instance=False, broadcast=False):
+    """``repeats`` copies of the ARES EA run's 13 elements, the tunables set
+    from per-instance columns of a settings tensor as the env sets them (k1
+    in +-20 m^-2 with exactly 0 and values within 1e-6 of 0, angles in
+    +-1e-3 rad); with ``frames``, a random tilt and misalignment on each
+    quadrupole of every instance; with ``energy_per_instance``, an energy
+    per instance; with ``broadcast``, the first quadrupole's k1 of shape
+    (2, 1) and the third's (2, 2048), which broadcast the 2048 instances'
+    other settings to (2, 2048)."""
+    if broadcast:
+        instances //= 2
+    from cheetah_tpu_torch.lattices import ares_ea_subcell
+
+    generator = torch.Generator(device="cuda").manual_seed(seed)
+    elements = []
+    for _ in range(repeats):
+        segment = ares_ea_subcell(dtype)
+        settings = torch.rand(instances, 5, generator=generator, device="cuda", dtype=dtype)
+        settings = settings * 2 - 1
+        settings[:, :3] *= 20
+        settings[:, 3:] *= 1e-3
+        settings[0, :3] = 0.0
+        settings[1, :3] = torch.tensor([1e-6, -1e-6, 3e-7], dtype=dtype)
+        for index, (name, attribute) in enumerate(
+            [("AREAMQZM1", "k1"), ("AREAMQZM2", "k1"), ("AREAMQZM3", "k1"),
+             ("AREAMCVM1", "angle"), ("AREAMCHM1", "angle")]
+        ):
+            setattr(getattr(segment, name), attribute, settings[..., index])
+        if broadcast:
+            segment.AREAMQZM1.k1 = torch.tensor([[12.0], [-7.5]], dtype=dtype, device="cuda")
+            segment.AREAMQZM3.k1 = torch.rand(2, instances, generator=generator, device="cuda",
+                                              dtype=dtype) * 40 - 20
+        if frames:
+            for name in ("AREAMQZM1", "AREAMQZM2", "AREAMQZM3"):
+                quadrupole = getattr(segment, name)
+                quadrupole.tilt = torch.rand(instances, generator=generator, device="cuda",
+                                             dtype=dtype) - 0.5
+                quadrupole.misalignment = (torch.rand(instances, 2, generator=generator,
+                                                      device="cuda", dtype=dtype) - 0.5) * 2e-3
+        elements += list(segment.elements)
+    energy = torch.tensor(1.54e8, dtype=dtype, device="cuda")
+    if energy_per_instance:
+        energy = torch.linspace(1.0e8, 2.0e8, instances, dtype=dtype, device="cuda")
+    return elements, energy, ctt.Species("electron", dtype=dtype, device="cuda")
+
+
+def _composite_map(elements, energy, species) -> torch.Tensor:
+    tm = torch.eye(7, dtype=energy.dtype, device=energy.device)
+    for element in elements:
+        tm = element.first_order_transfer_map(energy, species) @ tm
+    return tm
+
+
+def _per_map_error(actual, expected) -> torch.Tensor:
+    difference = (actual.double() - expected.double()).abs().amax(dim=(-2, -1))
+    return difference / expected.double().abs().amax(dim=(-2, -1))
+
+
+def _fused_map_bound(elements, energy, species, instances: int) -> dict:
+    """Least time (ms) of a run's map on the card and what sets it: the
+    parameters read and the maps written once over HBM's rate, or the FMAs
+    the maps need over the dtype's peak outside the tensor cores. An
+    element's map needs 7 FMAs (one a column of the running product) for
+    each entry in which it differs from the identity, counted instance by
+    instance on the composite's maps of these inputs."""
+    from cheetah_tpu_torch.ops import fused_maps
+
+    dtype = energy.dtype
+    size = torch.finfo(dtype).bits // 8
+    eye = torch.eye(7, dtype=dtype, device=energy.device)
+    entries = sum(
+        int(torch.count_nonzero(
+            (element.first_order_transfer_map(energy, species) - eye).expand(instances, 7, 7)))
+        for element in elements
+    )
+    read = {
+        (tensor.data_ptr(), tuple(tensor.shape), tensor.stride()): tensor.numel() * size
+        for tensor in (energy, species.mass_eV, *(
+            getattr(element, name) for element in elements
+            for name in fused_maps.KINDS[element.fused_opcode].attributes))
+    }
+    moved = sum(read.values()) + instances * 49 * size
+    peak = F32_OPS_PER_S if dtype == torch.float32 else F64_OPS_PER_S
+    byte_ms, op_ms = moved / HBM_BYTES_PER_S * 1e3, 2 * 7 * entries / peak * 1e3
+    return {"bound_ms": max(byte_ms, op_ms), "bound_by": "bytes" if byte_ms >= op_ms else
+            "operations", "bytes": moved, "fmas": 7 * entries}
+
+
+def phase_fused_maps(ctt) -> dict:
+    """``csrc/fused_maps.cu``: a fused linear run's 7x7 map in one launch per
+    32 elements, against the composite (the elements' maps multiplied one by
+    one) on the ARES EA run at 4096 instances (aligned; tilted and
+    misaligned; an energy per instance; parameters broadcasting to
+    (2, 2048)) and on a run of 78 elements (three launches): the map
+    within 1e-6 (float32) and 1e-13 (float64) of its largest entry; each
+    instance's map in float64 within 1e-13, in float32 no farther from the
+    float64 map of the same inputs than the composite's farthest map or
+    1e-6. Times the ARES run's map both ways, by CUDA-graph replay (device)
+    and eagerly (host included), beside its bound (:func:`_fused_map_bound`).
+    Returns the float32 numbers, the float64 ones under ``float64``, for the
+    ``kernels`` line."""
+    from cheetah_tpu_torch.accelerator.segment import run_transfer_map
+    from cheetah_tpu_torch.utils import profiling
+
+    cases = []
+    for dtype in (torch.float32, torch.float64):
+        for label, repeats, options, launches in (
+            ("ares", 1, {}, 1),
+            ("ares_tilted_misaligned", 1, {"frames": True}, 1),
+            ("ares_energy_per_instance", 1, {"frames": True, "energy_per_instance": True}, 1),
+            ("broadcast_2x2048", 1, {"broadcast": True}, 1),
+            ("long_run_78", 6, {"frames": True}, 3),
+        ):
+            elements, energy, species = _fused_run(ctt, dtype, repeats=repeats, **options)
+            before = profiling.counters()
+            actual = run_transfer_map(elements, energy, species)
+            counted = profiling.counters().get("fused_run_map", 0) - before.get("fused_run_map", 0)
+            composite = profiling.counters().get("fused_run_map_composite", 0) - before.get(
+                "fused_run_map_composite", 0)
+            expected = _composite_map(elements, energy, species)
+            whole = ((actual - expected).abs().max() / expected.abs().max()).item()
+            copies = [element.clone().double() for element in elements]
+            reference = _composite_map(copies, energy.double(), species.to(dtype=torch.float64))
+            kernel_error = _per_map_error(actual, reference).max().item()
+            composite_error = _per_map_error(expected, reference).max().item()
+            per_map = _per_map_error(actual, expected).max().item()
+            tolerance = 1e-6 if dtype == torch.float32 else 1e-13
+            check(counted == launches and composite == 0,
+                  f"fused_maps {label}: {counted} launches, {composite} composite runs")
+            check(bool(torch.isfinite(actual).all()), f"fused_maps {label}: non-finite map")
+            check(whole <= tolerance, f"fused_maps {label} {dtype}: {whole} of the largest entry")
+            if dtype == torch.float64:
+                check(per_map <= tolerance, f"fused_maps {label} f64: an instance off by {per_map}")
+            else:
+                check(kernel_error <= max(tolerance, 1.5 * composite_error),
+                      f"fused_maps {label} f32: {kernel_error} from float64, composite "
+                      f"{composite_error}")
+            cases.append({
+                "case": label, "dtype": str(dtype).removeprefix("torch."),
+                "elements": len(elements), "launches": counted, "rel_err_whole": whole,
+                "rel_err_worst_map": per_map, "kernel_vs_f64_worst_map": kernel_error,
+                "composite_vs_f64_worst_map": composite_error,
+            })
+    timings = {}
+    for dtype in (torch.float32, torch.float64):
+        elements, energy, species = _fused_run(ctt, dtype)
+        kernel = lambda: run_transfer_map(elements, energy, species)  # noqa: E731
+        composite = lambda: _composite_map(elements, energy, species)  # noqa: E731
+        key = str(dtype).removeprefix("torch.")
+        timings[key] = {
+            "kernel_graph_us": graph_ms(kernel) * 1e3,
+            "kernel_eager_us": time_ms(kernel, runs=50, per_event=20) * 1e3,
+            "composite_graph_us": graph_ms(composite) * 1e3,
+            "composite_eager_us": time_ms(composite, runs=20, per_event=5) * 1e3,
+            **_fused_map_bound(elements, energy, species, 4096),
+        }
+        timings[key]["bound_share"] = (timings[key]["bound_ms"] * 1e3
+                                       / timings[key]["kernel_graph_us"])
+    emit("fused_maps", instances=4096, cases=cases, timings=timings)
+    numbers = {}
+    for key, fields in timings.items():
+        numbers[key] = {
+            "ms": fields["kernel_graph_us"] * 1e-3, "eager_ms": fields["kernel_eager_us"] * 1e-3,
+            "plain_ms": fields["composite_eager_us"] * 1e-3,
+            "plain_graph_ms": fields["composite_graph_us"] * 1e-3,
+            "bound_ms": fields["bound_ms"], "bound_by": fields["bound_by"],
+        }
+    return {**numbers["float32"], "float64": numbers["float64"]}
+
+
 def phase_env_step(ctt, wrappers) -> None:
     from cheetah_tpu_torch.lattices import ares_ea_subcell
 
@@ -1023,6 +1229,7 @@ def phase_env_step(ctt, wrappers) -> None:
     _reset_launches(wrappers)
     sigma_x = segment.track(beam).sigma_x
     launches = _launches(wrappers)
+    map_launches = _map_launches("env_step", 1)
     check(not any(launches.values()), f"the env step launched {launches}")
     check(tuple(sigma_x.shape) == (num_instances,), f"sigma_x shape {tuple(sigma_x.shape)}")
     check(bool(torch.isfinite(sigma_x).all()), "non-finite sigma_x")
@@ -1043,7 +1250,7 @@ def phase_env_step(ctt, wrappers) -> None:
         instances=num_instances, particles=num_particles, elements=num_elements,
         ms=ms, transports_per_s=num_instances * num_particles * num_elements / (ms * 1e-3),
         sigma_x_rel_err_vs_cpu_f64=error, kernel_launches=launches,
-        peak_memory_gib=peak,
+        fused_run_map_launches=map_launches, peak_memory_gib=peak,
     )
 
 
@@ -1100,6 +1307,8 @@ def phase_space_charge(ctt, wrappers) -> dict:
     _reset_launches(wrappers)
     out = segment.track(beam)
     launches = _launches(wrappers)
+    # One launch for each of the three drifts, the runs between the kicks.
+    map_launches = _map_launches("space_charge_segment", 3)
     expected = {name: 0 for name in wrappers} | {"deposit_multi_3d": 2, "gather_multi_3d": 2}
     check(launches == expected, f"space-charge segment launched {launches}, not {expected}")
     check(bool(torch.isfinite(out.particles).all()), "non-finite particles after the kicks")
@@ -1113,7 +1322,7 @@ def phase_space_charge(ctt, wrappers) -> dict:
     emit(
         "space_charge_segment",
         particles=NUM_PARTICLES, grid=[32, 32, 32], kicks=2, ms=ms,
-        launches=launches,
+        launches=launches, fused_run_map_launches=map_launches,
         kick_rms_rel_err_vs_cpu_f64=errors, cpu_f64_seconds=cpu_seconds,
     )
 
@@ -1687,6 +1896,9 @@ def phase_sc_grad(ctt, wrappers, grid_shape, uses_tiled: bool) -> tuple[dict, di
     _reset_launches(wrappers)
     value = torch.sum(torch.square(segment.track(beam).px))
     forward = _launches(wrappers)
+    # The differentiated first drift is built element by element; the
+    # other two drifts launch the kernel.
+    _map_launches(label, 2, composite=1)
     _reset_launches(wrappers)
     (grad,) = torch.autograd.grad(value, length)
     backward = _launches(wrappers)
@@ -1773,6 +1985,8 @@ def phase_env_step_grad(ctt, wrappers) -> None:
     _reset_launches(wrappers)
     _, grad = value_and_grad()
     launches = _launches(wrappers)
+    # k1 tracks a gradient: the run is built element by element.
+    _map_launches("env_step_grad", 0, composite=1)
     check(tuple(grad.shape) == (num_instances,), f"k1 gradient shape {tuple(grad.shape)}")
     check(bool(torch.isfinite(grad).all()), "non-finite k1 gradient")
 
@@ -1858,6 +2072,7 @@ def phase_env_moments(ctt, wrappers) -> None:
     _reset_launches(wrappers)
     moments = segment.track_moments(beam)
     launches = _no_cic_launches(wrappers, "track_moments")
+    map_launches = _map_launches("env_moments", 1)
     check(isinstance(moments, ctt.ParameterBeam), f"track_moments gave {type(moments)}")
     sigma_x = moments.sigma_x
     check(bool(torch.isfinite(sigma_x).all()), "non-finite track_moments sigma_x")
@@ -1879,7 +2094,7 @@ def phase_env_moments(ctt, wrappers) -> None:
         instances=num_instances, particles=num_particles, ms=ms,
         track_ms=time_ms(lambda: segment.track(beam).sigma_x, runs=20),
         sigma_x_rel_diff_vs_track=vs_track, sigma_x_rel_err_vs_cpu_f64=vs_cpu,
-        cic_kernel_launches=launches,
+        cic_kernel_launches=launches, fused_run_map_launches=map_launches,
     )
     check(vs_track <= MOMENTS_RTOL, f"track_moments vs track: sigma_x off by {vs_track}")
     check(vs_cpu <= MOMENTS_RTOL, f"track_moments sigma_x off by {vs_cpu} against the CPU")
@@ -3420,8 +3635,9 @@ def phase_deploy(ctt, wrappers, futures) -> None:
         other = _bench_beam(ctt, num_particles, "cuda",
                             torch.Generator(device="cuda").manual_seed(SEED + 1))
         arguments = aot.beam_arguments(other)
-        got, want = program(*arguments), segment.track(other).sigma_x
-        built = package(*arguments)
+        got = _counted_maps("deploy_env_step", lambda: program(*arguments), 1)
+        want = segment.track(other).sigma_x
+        built = _counted_maps("aoti_env_step", lambda: package(*arguments), 1)
         runs[num_particles] = {
             "shape": list(got.shape),
             "rel_err_vs_eager": ((got - want).abs() / want.abs()).max().item(),
@@ -3492,13 +3708,15 @@ def phase_deploy(ctt, wrappers, futures) -> None:
 
 #: The operators each exported space-charge segment (two kicks) holds, by
 #: grid: the untiled pair on 32^3, the x-tiled pair and a plan for each of
-#: its autograd nodes on 128^3.
+#: its autograd nodes on 128^3; on both the three drifts' maps.
 DEPLOY_SC_OPERATORS = {
     32: {"cheetah_tpu_torch.cic_deposit_multi.default": 2,
-         "cheetah_tpu_torch.cic_gather_multi.default": 2},
+         "cheetah_tpu_torch.cic_gather_multi.default": 2,
+         "cheetah_tpu_torch.fused_run_map.default": 3},
     128: {"cheetah_tpu_torch.cic_tile_plan.default": 4,
           "cheetah_tpu_torch.cic_deposit_tiled.default": 2,
-          "cheetah_tpu_torch.cic_gather_tiled.default": 2},
+          "cheetah_tpu_torch.cic_gather_tiled.default": 2,
+          "cheetah_tpu_torch.fused_run_map.default": 3},
 }
 #: What the plain versions would leave in a graph: the untiled pair's
 #: index_add_ and gather, the tiled gather's scatter_ and the plan's sort
@@ -3631,9 +3849,11 @@ def phase_deploy_space_charge(ctt, wrappers, cic_kernels, cic_tiled, futures) ->
             _reset_launches(wrappers)
             got = program(*arguments)
             loaded = _launches(wrappers)
+            _map_launches(label, 3)
             _reset_launches(wrappers)
             want = segment.track(other).particles
             eager = _launches(wrappers)
+            _map_launches(f"{label}_eager", 3)
             check(cic_tiled.tile_plan.calls == sorts, f"{label}: a plan went through torch.sort")
             check(loaded == eager == expected,
                   f"{label} at {num_particles}: loaded launched {loaded}, eager {eager}")
@@ -3652,6 +3872,7 @@ def phase_deploy_space_charge(ctt, wrappers, cic_kernels, cic_tiled, futures) ->
             _reset_launches(wrappers)
             built = package(*arguments)
             built_launches = _launches(wrappers)
+            _map_launches(f"aoti_sc_{grid[0]}", 3)
             check(built_launches == eager,
                   f"{label} at {num_particles}: the AOTInductor package launched "
                   f"{built_launches}, eager {eager}")
@@ -3828,7 +4049,9 @@ class _CompiledCase(NamedTuple):
     expected)`` holds a compiled step's outputs to the uncompiled step's
     (raising past the path's bound) and returns the errors;
     ``expected_cic`` the wrappers' launches of one step; ``repeats`` how
-    many runs must give the same bits."""
+    many runs must give the same bits; ``expected_maps`` the fused-map
+    kernel's launches of one step (none where the maps track a gradient,
+    whose composite the graph holds)."""
 
     fn: object
     call: object
@@ -3836,6 +4059,7 @@ class _CompiledCase(NamedTuple):
     compare: object
     expected_cic: dict
     repeats: int = 0
+    expected_maps: int = 0
 
 
 def _compiled_case(name: str, ctt, parallel, cic_kernels) -> _CompiledCase:
@@ -3888,7 +4112,8 @@ def _compiled_case(name: str, ctt, parallel, cic_kernels) -> _CompiledCase:
             check(error <= bound, f"compiled {name}: sigma_x off eager by {error}")
             return error
 
-        return _CompiledCase(fn, lambda f: (f(segment, beam),), renew, compare_sigma, {})
+        return _CompiledCase(fn, lambda f: (f(segment, beam),), renew, compare_sigma, {},
+                             expected_maps=1)
 
     if name.startswith("sc_"):
         grid = (int(name.rsplit("_", 1)[1]),) * 3
@@ -3911,7 +4136,8 @@ def _compiled_case(name: str, ctt, parallel, cic_kernels) -> _CompiledCase:
 
             return _CompiledCase(lambda s, b: s.track(b).particles, lambda f: (f(segment, beam),),
                                  renew, compare_kicks,
-                                 {f"deposit_multi_{kind}": 2, f"gather_multi_{kind}": 2})
+                                 {f"deposit_multi_{kind}": 2, f"gather_multi_{kind}": 2},
+                                 expected_maps=3)
 
         def value_and_grad(f):
             length = segment.elements[0].length
@@ -3927,7 +4153,8 @@ def _compiled_case(name: str, ctt, parallel, cic_kernels) -> _CompiledCase:
         if kind == "tiled_3d":
             expected["plan_tiles"] = 4
         return _CompiledCase(lambda s, b: torch.sum(torch.square(s.track(b).px)),
-                             value_and_grad, renew, compare_grad, expected, COMPILED_REPEATS)
+                             value_and_grad, renew, compare_grad, expected, COMPILED_REPEATS,
+                             expected_maps=2)
 
     # BatchedLatticeEnv (config 5), compiled as a user compiles it:
     # torch.compile(env.step), new settings every call.
@@ -3961,7 +4188,7 @@ def _compiled_case(name: str, ctt, parallel, cic_kernels) -> _CompiledCase:
             check(max(errors) <= 1.0, f"compiled env.step off eager by {errors} of its bound")
             return max(errors)
 
-        return _CompiledCase(env.step, step_call, renew, compare_step, {})
+        return _CompiledCase(env.step, step_call, renew, compare_step, {}, expected_maps=1)
 
     def compare_grad_step(actual, expected):
         # The steps taken: the k1 gradients within their bound; the
@@ -4076,7 +4303,8 @@ def _compile_path(name: str) -> dict:
     fullgraph=True, dynamic=False)`` with Inductor, its graphs recorded:
     compiled cold by its first call, held against eager, not traced again
     after ``renew()``, held again; its graphs hold no plain version's
-    operator; the wrappers count ``expected_cic`` launches a step;
+    operator; the wrappers count ``expected_cic`` launches a step, the
+    fused-map kernel ``expected_maps``;
     ``repeats`` runs give the same bits. Then compiled with
     ``mode="reduce-overhead"`` (CUDA graphs): the calls that run and
     record the step count ``expected_cic`` launches each, its replays none;
@@ -4111,6 +4339,7 @@ def _compile_path(name: str) -> dict:
     _reset_launches(wrappers)
     case.call(compiled)
     launches = _launches(wrappers)
+    map_launches = _map_launches(label, case.expected_maps)
     expected = {name: 0 for name in wrappers} | case.expected_cic
     check(launches == expected, f"{label}: the compiled step launched {launches}")
     if case.repeats:
@@ -4147,7 +4376,8 @@ def _compile_path(name: str) -> dict:
     return {
         "compile_s": compile_s, "graphs_compile_s": graphs_compile_s,
         "compile_seconds_by_stage": stages, "errors_vs_eager": errors, "operators": operators,
-        "wrapper_launches": launches, "graphs_wrapper_launches_by_call": calls,
+        "wrapper_launches": launches, "map_launches": map_launches,
+        "graphs_wrapper_launches_by_call": calls,
         "graph_count": len(graphs),
         "repeats_bit_for_bit": case.repeats,
     }
@@ -4206,6 +4436,8 @@ def phase_compiled(pools, futures) -> dict:
     emit("compiled", triton=triton.__version__, processes=len(COMPILE_GROUPS),
          compile_s={name: fields["compile_s"] for name, fields in paths.items()},
          graphs_compile_s={name: fields["graphs_compile_s"] for name, fields in paths.items()})
+    MAP_LAUNCHES.update({f"compiled_{name}": paths[name]["map_launches"]
+                         for name in COMPILED_PATHS})
     return {f"compiled_{name}": paths[name]["wrapper_launches"]
             for name in COMPILED_PATHS if name.startswith("sc_")}
 
@@ -4290,7 +4522,9 @@ def _path_phases(ctt, wrappers, cic_kernels, cic_tiled, smi, futures) -> tuple:
     """The path phases, from the env step to the deploy phases, which load
     the packages of ``futures``. Returns the CIC wrappers' launches of the
     space-charge segment, and by grid those of its gradient, the line, the
-    sharded gradient and the exported and AOTInductor programs."""
+    sharded gradient and the exported and AOTInductor programs; and the
+    fused-map kernel's numbers (``phase_fused_maps``)."""
+    fused_numbers = phase_fused_maps(ctt)
     phase_env_step(ctt, wrappers)
     segment_launches = phase_space_charge(ctt, wrappers)
     phase_env_step_grad(ctt, wrappers)
@@ -4338,7 +4572,8 @@ def _path_phases(ctt, wrappers, cic_kernels, cic_tiled, smi, futures) -> tuple:
     # since the fourteenth, built by AOTInductor).
     deploy_launches = phase_deploy_space_charge(ctt, wrappers, cic_kernels, cic_tiled,
                                                 futures)
-    return segment_launches, grad_launches, line_launches, sharded_launches, deploy_launches
+    return (segment_launches, grad_launches, line_launches, sharded_launches, deploy_launches,
+            fused_numbers)
 
 
 def main() -> int:
@@ -4350,11 +4585,11 @@ def main() -> int:
 
     _compile_cache()
     import cheetah_tpu_torch as ctt
-    from cheetah_tpu_torch.ops import cic_kernels, cic_tiled
+    from cheetah_tpu_torch.ops import cic_kernels, cic_tiled, fused_maps
 
     wrappers = _wrappers(cic_kernels, cic_tiled)
     smi = phase_environment()
-    phase_build([cic_kernels.LIBRARY, cic_tiled.LIBRARY])
+    phase_build([cic_kernels.LIBRARY, cic_tiled.LIBRARY, fused_maps.LIBRARY])
     numbers = phase_kernels(cic_kernels)
     tiled_numbers = phase_kernels_tiled(cic_kernels, cic_tiled)
     emit("deposit_crowded", particles=NUM_PARTICLES, cells=8,
@@ -4374,7 +4609,8 @@ def main() -> int:
         compiled_launches = phase_compiled(pools, futures)
     finally:
         _stop_compiles(pools)
-    segment_launches, grad_launches, line_launches, sharded_launches, deploy_launches = paths
+    (segment_launches, grad_launches, line_launches, sharded_launches, deploy_launches,
+     fused_numbers) = paths
 
     def entry(name, source, replaces, measured, **extra):
         by_path = {"space_charge_segment": segment_launches[name],
@@ -4407,6 +4643,15 @@ def main() -> int:
         entry("plan_tiles", tiled, "cheetah_tpu/ops/pallas_cic_tiled.py:108",
               tiled_numbers["plan"]),
     ]
+    # The fused maps replace no TPU kernel (XLA fused the JAX package's);
+    # their plain version is the composite, the elements' maps one by one.
+    map_launches = sum(MAP_LAUNCHES.values())
+    check(map_launches > 0, "fused_run_map was not launched on its paths")
+    kernels.append({
+        "name": "fused_run_map", "route": "cuda", "source": "cheetah_tpu_torch/csrc/fused_maps.cu",
+        "replaces": None, "launches": map_launches, "launches_by_path": dict(MAP_LAUNCHES),
+        **fused_numbers,
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(

@@ -39,12 +39,17 @@ from test_torch_compile import (  # noqa: F401 (_fresh_dynamo: autouse)
 #: differ by up to 1.3e-6 of it (ROADMAP, the known behaviours).
 KICK_BOUND = 1.3e-6
 GRIDS = {"untiled": (8, 8, 8), "tiled": (160, 40, 16)}
+#: The port's operators in the graphs: the grid's CIC operators and the
+#: drifts' maps (``fused_run_map``; the first drift's, where its length
+#: tracks a gradient, is built element by element instead).
 OPERATORS = {
     "untiled": {"cheetah_tpu_torch.cic_deposit_multi.default",
-                "cheetah_tpu_torch.cic_gather_multi.default"},
+                "cheetah_tpu_torch.cic_gather_multi.default",
+                "cheetah_tpu_torch.fused_run_map.default"},
     "tiled": {"cheetah_tpu_torch.cic_tile_plan.default",
               "cheetah_tpu_torch.cic_deposit_tiled.default",
-              "cheetah_tpu_torch.cic_gather_tiled.default"},
+              "cheetah_tpu_torch.cic_gather_tiled.default",
+              "cheetah_tpu_torch.fused_run_map.default"},
 }
 #: What the plain versions leave in a graph: the deposit's index_add_, the
 #: gather's gather, the tiled gather's scatter_, the plan's sort and
