@@ -23,6 +23,7 @@ from typing import Any
 import torch
 from torch import nn
 
+from cheetah_tpu_torch.ops import fused_transport
 from cheetah_tpu_torch.ops.transfer_maps import identity_transfer_map  # noqa: F401 (re-exported)
 from cheetah_tpu_torch.particles import Beam, ParameterBeam, ParticleBeam, Species
 from cheetah_tpu_torch.utils.device import as_float_tensor, check_module_device
@@ -265,8 +266,12 @@ class Element(nn.Module):
 
     def _track_first_order(self, incoming: Beam) -> Beam:
         """Linear tracking: the moments' congruence ``mu' = M mu``,
-        ``cov' = M cov M^T`` for a :class:`ParameterBeam`, the batched
-        ``(..., N, 7) @ (..., 7, 7)^T`` matmul for a :class:`ParticleBeam`."""
+        ``cov' = M cov M^T`` for a :class:`ParameterBeam`; for a
+        :class:`ParticleBeam` the batched ``(..., N, 7) @ (..., 7, 7)^T``,
+        by the ``transport_moments`` operator where nothing tracks a
+        gradient (:func:`fused_transport.takes`; the outgoing beam's moment
+        memo then holds the operator's sums), else by ``torch.matmul``
+        (counted as ``fused_transport_matmul``)."""
         with span("ctt.maps"):
             tm = self.first_order_transfer_map(incoming.energy, incoming.species)
         with span("ctt.transport"):
@@ -279,14 +284,24 @@ class Element(nn.Module):
                     s=incoming.s + self.length,
                     species=incoming.species,
                 )
-            return ParticleBeam(
-                torch.matmul(incoming.particles, tm.transpose(-1, -2)),
+            particles, weights = incoming.particles, incoming.survival_probabilities
+            sums = None
+            if fused_transport.takes(particles, tm, weights):
+                particles, *sums = fused_transport.TRANSPORT_MOMENTS(particles, tm, weights)
+            else:
+                count("fused_transport_matmul")
+                particles = torch.matmul(particles, tm.transpose(-1, -2))
+            outgoing = ParticleBeam(
+                particles,
                 incoming.energy,
                 particle_charges=incoming.particle_charges,
-                survival_probabilities=incoming.survival_probabilities,
+                survival_probabilities=weights,
                 s=incoming.s + self.length,
                 species=incoming.species,
             )
+            if sums is not None:
+                outgoing._seed_moments(*sums)
+            return outgoing
 
     def _track_second_order(self, incoming: Beam) -> Beam:
         """Second-order tracking, ``out_i = sum_jk T_ijk in_j in_k``; a

@@ -26,6 +26,7 @@ from cheetah_tpu_torch.utils.device import (
     same_device,
 )
 from cheetah_tpu_torch.utils.elementwise_linspace import elementwise_linspace
+from cheetah_tpu_torch.utils.profiling import count
 from cheetah_tpu_torch.utils.statistics import (
     match_distribution_moments,
     unbiased_weighted_covariance,
@@ -70,15 +71,26 @@ def _cov(first: int, second: int, name: str) -> property:
     )
 
 
-def _weighted_moments(
+def _weighted_sums(
     particles: torch.Tensor, weights: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Weighted mean and unbiased variance of each column of ``particles``
-    (:meth:`ParticleBeam._component_moments`)."""
-    total = torch.sum(weights, dim=-1)
+    """The weighted sums ``sum_n w_n p_n`` and ``sum_n w_n p_n^2`` of each
+    column of ``particles``, shapes ``(..., 7)``: two batched
+    vector-matrix products, with the squared particles as their one
+    temporary."""
     w_row = weights.unsqueeze(-2)
     s1 = torch.matmul(w_row, particles).squeeze(-2)
     s2 = torch.matmul(w_row, torch.square(particles)).squeeze(-2)
+    return s1, s2
+
+
+def _finish_moments(
+    s1: torch.Tensor, s2: torch.Tensor, weights: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Weighted mean and unbiased variance of each column from its sums
+    (:func:`_weighted_sums`, or the fused transport's), by the raw-moment
+    identity ``Var = E[x^2] - mu^2`` clamped at 0."""
+    total = torch.sum(weights, dim=-1)
     mean = s1 / total[..., None]
     correction = total - torch.sum(torch.square(weights), dim=-1) / total
     variance = (
@@ -86,6 +98,14 @@ def _weighted_moments(
         / correction[..., None]
     )
     return mean, variance
+
+
+def _weighted_moments(
+    particles: torch.Tensor, weights: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Weighted mean and unbiased variance of each column of ``particles``
+    (:meth:`ParticleBeam._component_moments`)."""
+    return _finish_moments(*_weighted_sums(particles, weights), weights)
 
 
 class ParticleBeam(Beam):
@@ -960,9 +980,13 @@ class ParticleBeam(Beam):
 
         Results are memoised for the current ``particles`` and
         ``survival_probabilities`` tensors, keyed on their identity and their
-        in-place version counters. Under ``torch.compile`` there is no memo:
-        a version counter is no value a trace can branch on, and the
-        compiler merges the repeated sums itself.
+        in-place version counters; a beam that the fused transport made
+        starts with its sums in the memo (:meth:`_seed_moments`), so its
+        moments read no particle. A pass over the particles counts as
+        ``moments_reduction`` (:func:`~cheetah_tpu_torch.utils.profiling.counters`).
+        Under ``torch.compile`` there is no memo: a version counter is no
+        value a trace can branch on, and the compiler merges the repeated
+        sums itself.
         """
         weights = self.survival_probabilities
         particles = self.particles
@@ -971,15 +995,29 @@ class ParticleBeam(Beam):
         key = (particles._version, weights._version)
         cached = getattr(self, "_moments_cache", None)
         if (
-            cached is not None
-            and cached[0] is particles
-            and cached[1] is weights
-            and cached[2] == key
+            cached is None
+            or cached[0] is not particles
+            or cached[1] is not weights
+            or cached[2] != key
         ):
-            return cached[3]
-        moments = _weighted_moments(particles, weights)
-        self._moments_cache = (particles, weights, key, moments)
-        return moments
+            count("moments_reduction")
+            cached = (particles, weights, key, _weighted_sums(particles, weights), None)
+        if cached[4] is None:
+            cached = (*cached[:4], _finish_moments(*cached[3], weights))
+            self._moments_cache = cached
+        return cached[4]
+
+    def _seed_moments(self, s1: torch.Tensor, s2: torch.Tensor) -> None:
+        """Put the weighted sums of the current particles (the fused
+        transport's, :func:`_weighted_sums`' shapes) in the moment memo,
+        keyed as :meth:`_component_moments` keys it: an in-place edit of
+        the particles or weights drops them. Nothing under
+        ``torch.compile``, which keeps no memo."""
+        if torch.compiler.is_compiling():
+            return
+        particles, weights = self.particles, self.survival_probabilities
+        key = (particles._version, weights._version)
+        self._moments_cache = (particles, weights, key, (s1, s2), None)
 
     x = _component(0, "x")
     px = _component(1, "px")

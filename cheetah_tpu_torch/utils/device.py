@@ -132,13 +132,15 @@ def constant_cache(function: Callable[..., torch.Tensor]) -> Callable[..., torch
     carried into the exported program as one of its constants. Under
     ``torch.compile`` the constant is built in the traced program instead,
     which the compiler folds: the cache is the eager path's saving of a copy
-    from the host, and a compiled program makes no such copy.
+    from the host, and a compiled program makes no such copy. Inside a
+    transform of ``torch.func`` it is built anew too: a tensor made there is
+    the transform's wrapper, whose storage is gone once the transform ends.
     """
     cached = functools.lru_cache(maxsize=None)(function)
 
     @functools.wraps(function)
     def build_once(*args):
-        if torch.compiler.is_compiling():
+        if torch.compiler.is_compiling() or torch._C._are_functorch_transforms_active():
             return function(*args)
         with unset_fake_temporarily():
             return cached(*args)

@@ -37,8 +37,8 @@ The spans, each around what the port runs for it:
   nest); ``ctt.plan``: ``Segment._plan``, the fused runs and brackets.
 - ``ctt.maps``: building a transfer map (an element's or a fused run's 7x7
   map, a T-tensor, a second-order bracket's folded map);
-  ``ctt.transport``: applying it (the particles' matmul, the covariance
-  congruence, the quadratic map).
+  ``ctt.transport``: applying it (the particles' fused transport or
+  matmul, the covariance congruence, the quadratic map).
 - ``ctt.sc.kick``: ``SpaceChargeKick._track``, with the children
   ``ctt.sc.grid`` (sigmas, grid geometry, normalised positions),
   ``ctt.sc.deposit`` (the charge deposit with its tile plan, density and
@@ -54,7 +54,13 @@ operators' kernel launches by wrapper (``deposit_multi_3d``,
 ``plan_tiles``); ``fused_run_map`` (each launch of the kernel that builds a
 fused linear run's map, ``ops/fused_maps.py``) and
 ``fused_run_map_composite`` (each run whose map is built element by
-element instead).
+element instead); ``fused_transport`` (each call of the operator that
+transports a particle beam and sums its moments in one pass,
+``ops/fused_transport.py``: one launch of its kernel on the card, its plain
+version on the CPU), ``fused_transport_matmul`` (each particle transport
+left on ``torch.matmul`` instead, where a gradient is tracked) and
+``moments_reduction`` (each moment readout of a particle beam that sums
+its particles, for want of the transport's sums).
 """
 
 from __future__ import annotations
@@ -382,7 +388,8 @@ def compiled_stats(fn: Callable, *args) -> dict[str, float]:
     (their plain versions), as XLA's cost analysis counts none inside a
     Pallas custom call. ``cheetah_tpu_torch::fused_run_map`` counts the
     7x7 products of its plain version for every instance, which XLA counts
-    in the maps it fuses."""
+    in the maps it fuses; ``cheetah_tpu_torch::transport_moments`` counts
+    the transport's matmul, not the moment sums it takes in passing."""
     from torch.utils.flop_counter import FlopCounterMode
 
     tally = _ByteTally()

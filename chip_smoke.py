@@ -12,8 +12,11 @@ tile plan's counting sort against ``torch.sort``), the deposits on every
 route their wrappers pick and on a crowded beam, times the gathers at the
 order sets the paths use and the deposits at C = 1 and 3, holds the fused
 linear run's map (``csrc/fused_maps.cu``, one launch per 32 elements)
-against the elements' maps multiplied one by one and times both, drives
-the paths of the port through the
+against the elements' maps multiplied one by one and times both, holds
+the fused transport (``csrc/fused_transport.cu``: the outgoing particles
+and their moment sums in one pass) against the matmul and the beam's sums
+and times it beside ``torch.matmul``, drives the paths of the port
+through the
 public entry points (the ARES EA env step and the 1M-particle space-charge
 segment, forward and with their gradients, the latter on the 32^3 grid of
 the untiled kernels and the 128^3 grid of the x-tiled ones), checks them
@@ -384,7 +387,9 @@ BEAM_IO_F64_RTOL = 1e-12
 # deploy: the env step exported by torch.export with the particle axis
 # symbolic, saved, loaded and run at 10k and 100k particles: the loaded
 # program runs the operations of eager tracking on the same card, rtol
-# 1e-6. The plots of the linac as imported (its magnets at zero) from a
+# 1e-6 (its readout sums the particles, as eager tracking's plain readout
+# does; eager's own sigma_x, from the fused transport's float64 sums, within
+# ENV_STEP_RTOL). The plots of the linac as imported (its magnets at zero) from a
 # float64 card run against the float64 CPU run, within 1e-6 of each line's
 # largest value: the Twiss beta divides by an emittance that cancels up to
 # 8.4e7-fold at the linac's end (<x^2><px^2> over the emittance squared),
@@ -561,13 +566,24 @@ MAP_COUNTERS = ("fused_run_map", "fused_run_map_composite")
 MAP_LAUNCHES: dict = {}
 
 
+#: The fused transport's counters (``ops/fused_transport.py``): its
+#: operator's calls (one launch of its kernel each on the card), the
+#: particle transports left on ``torch.matmul``, and the moment readouts
+#: that summed the particles instead of taking the transport's sums.
+TRANSPORT_COUNTERS = ("fused_transport", "fused_transport_matmul", "moments_reduction")
+#: ``transport_moments_kernel``'s launches by path (:func:`_map_launches`),
+#: for the ``kernels`` line.
+TRANSPORT_LAUNCHES: dict = {}
+
+
 def _reset_launches(wrappers: dict) -> None:
-    """Count the wrappers' launches and the fused maps' counters
-    (``utils.profiling``'s counters) from now."""
+    """Count the wrappers' launches, the fused maps' and the fused
+    transport's counters (``utils.profiling``'s counters) from now."""
     from cheetah_tpu_torch.utils import profiling
 
     counted = profiling.counters()
-    _LAUNCH_BASE.update({name: counted.get(name, 0) for name in (*wrappers, *MAP_COUNTERS)})
+    _LAUNCH_BASE.update({name: counted.get(name, 0)
+                         for name in (*wrappers, *MAP_COUNTERS, *TRANSPORT_COUNTERS)})
 
 
 def _launches(wrappers: dict) -> dict:
@@ -579,26 +595,38 @@ def _launches(wrappers: dict) -> dict:
     return {name: counted.get(name, 0) - _LAUNCH_BASE.get(name, 0) for name in wrappers}
 
 
-def _map_launches(path: str, launches: int, composite: int = 0) -> int:
-    """The fused maps' counters since :func:`_reset_launches`, checked:
-    ``launches`` launches of the kernel and ``composite`` runs built
-    element by element. Keeps the launches under ``path``."""
+def _map_launches(path: str, launches: int, composite: int = 0, transports: int = 0,
+                  matmuls: int = 0, reductions: int | None = None) -> int:
+    """The fused maps' and the fused transport's counters since
+    :func:`_reset_launches`, checked: ``launches`` launches of the map
+    kernel and ``composite`` runs built element by element; ``transports``
+    launches of the transport kernel and ``matmuls`` particle transports by
+    ``torch.matmul`` (which a compiled program, counting nothing at its
+    trace, never counts); where ``reductions`` is given, that many moment
+    readouts that summed the particles. Keeps the launches under ``path``."""
     from cheetah_tpu_torch.utils import profiling
 
     counted = profiling.counters()
-    got = {name: counted.get(name, 0) - _LAUNCH_BASE.get(name, 0) for name in MAP_COUNTERS}
-    want = dict(zip(MAP_COUNTERS, (launches, composite)))
-    check(got == want, f"{path}: the fused maps counted {got}, not {want}")
+    names = (*MAP_COUNTERS, *TRANSPORT_COUNTERS[:2])
+    got = {name: counted.get(name, 0) - _LAUNCH_BASE.get(name, 0) for name in names}
+    want = dict(zip(names, (launches, composite, transports, matmuls)))
+    if reductions is not None:
+        got["moments_reduction"] = (counted.get("moments_reduction", 0)
+                                    - _LAUNCH_BASE.get("moments_reduction", 0))
+        want["moments_reduction"] = reductions
+    check(got == want, f"{path}: the fused maps and transport counted {got}, not {want}")
     MAP_LAUNCHES[path] = launches
+    TRANSPORT_LAUNCHES[path] = transports
     return launches
 
 
-def _counted_maps(path: str, fn, launches: int):
+def _counted_maps(path: str, fn, launches: int, transports: int = 0):
     """``fn()``, which launches the fused-map kernel ``launches`` times and
-    builds no run element by element (:func:`_map_launches`)."""
+    the fused transport's ``transports`` times, and builds no run element
+    by element (:func:`_map_launches`)."""
     _reset_launches({})
     result = fn()
-    _map_launches(path, launches)
+    _map_launches(path, launches, transports=transports)
     return result
 
 
@@ -1216,6 +1244,121 @@ def phase_fused_maps(ctt) -> dict:
     return {**numbers["float32"], "float64": numbers["float64"]}
 
 
+def _transport_inputs(case: str, dtype, generator):
+    """Particles (the scale of a beam, the constant 1 in the last column),
+    maps and weights of a fused-transport case: the env step's 4096
+    instances sharing 10000 particles, with all weights 1 or some 0; per
+    instance beams of 1001 particles; one particle; one instance of
+    1000003 particles (chunks and the sums pass); a beam off 16 bytes."""
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=generator, device="cuda",
+                          dtype=torch.float64).to(dtype)
+
+    def particles(*shape):
+        values = (rand(*shape) - 0.5) * 2e-4
+        values[..., 6] = 1.0
+        return values
+
+    maps = rand(ENV_INSTANCES, 7, 7) * 2 - 1
+    if case == "env":
+        return particles(10_000, 7), maps, torch.ones(10_000, dtype=dtype, device="cuda")
+    if case == "env_dead_particles":
+        return particles(10_000, 7), maps, rand(10_000) * (rand(10_000) > 0.3)
+    if case == "per_instance_1001":
+        return particles(3, 1001, 7), maps[:3], rand(3, 1001)
+    if case == "one_particle":
+        return particles(1, 7), maps[:5], rand(1)
+    if case == "one_instance_1000003":
+        return particles(1_000_003, 7), maps[0], rand(1_000_003)
+    return particles(2, 10, 7)[:, 1:], maps[:2], rand(2, 9)
+
+
+def _transport_bound(particles, transfer_map, weights) -> dict:
+    """Least time (ms) of a transport on the card and what sets it: each
+    input read and each output (the outgoing particles and both sums)
+    written once over HBM's rate, or the 49 FMAs a particle and the sums'
+    28 operations over the dtype's peak outside the tensor cores."""
+    size = torch.finfo(particles.dtype).bits // 8
+    instances = math.prod(torch.broadcast_shapes(particles.shape[:-2], transfer_map.shape[:-2]))
+    outgoing = instances * particles.shape[-2] * 7
+    moved = (particles.numel() + transfer_map.numel() + weights.numel() + outgoing
+             + 2 * instances * 7) * size
+    peak = F32_OPS_PER_S if particles.dtype == torch.float32 else F64_OPS_PER_S
+    byte_ms = moved / HBM_BYTES_PER_S * 1e3
+    op_ms = (2 * 7 + 4) * outgoing / peak * 1e3
+    return {"bound_ms": max(byte_ms, op_ms), "bound_by": "bytes" if byte_ms >= op_ms else "ops",
+            "bytes": moved}
+
+
+def phase_fused_transport() -> dict:
+    """``csrc/fused_transport.cu``: the outgoing particles and their
+    weighted sums against the plain version (the matmul and the beam's
+    sums) of the same inputs in float64, within 1e-6 (float32) and 1e-13
+    (float64) of the largest value, in the cases of
+    :func:`_transport_inputs`; the same bits on three runs; one counted
+    call each. Times the env step's shape by CUDA-graph replay (device) and
+    eagerly (host included), beside its bound (:func:`_transport_bound`),
+    the plain version and ``torch.matmul`` alone. Returns the float32
+    numbers, the float64 ones under ``float64``, for the ``kernels`` line."""
+    from cheetah_tpu_torch.ops import fused_transport
+    from cheetah_tpu_torch.particles.particle_beam import _weighted_sums
+    from cheetah_tpu_torch.utils import profiling
+
+    generator = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    cases = []
+    for dtype in (torch.float32, torch.float64):
+        tolerance = 1e-6 if dtype == torch.float32 else 1e-13
+        for label in ("env", "env_dead_particles", "per_instance_1001", "one_particle",
+                      "one_instance_1000003", "not_aligned"):
+            inputs = _transport_inputs(label, dtype, generator)
+            before = profiling.counters().get("fused_transport", 0)
+            runs = [fused_transport.TRANSPORT_MOMENTS(*inputs) for _ in range(3)]
+            counted = profiling.counters().get("fused_transport", 0) - before
+            out = torch.matmul(inputs[0].double(), inputs[1].double().transpose(-1, -2))
+            expected = (out, *_weighted_sums(out, inputs[2].double()))
+            errors = [((got.double() - want).abs().max() / want.abs().max()).item()
+                      for got, want in zip(runs[0], expected)]
+            same = all(torch.equal(a, b) for run in runs[1:] for a, b in zip(runs[0], run))
+            check(counted == 3, f"fused_transport {label}: {counted} calls counted for 3")
+            check(all(bool(torch.isfinite(got).all()) for got in runs[0]),
+                  f"fused_transport {label} {dtype}: non-finite output")
+            check(max(errors) <= tolerance,
+                  f"fused_transport {label} {dtype}: off the plain version by {errors}")
+            check(same, f"fused_transport {label} {dtype}: the bits moved between runs")
+            cases.append({"case": label, "dtype": str(dtype).removeprefix("torch."),
+                          "shape": list(runs[0][0].shape), "particles_rel_err": errors[0],
+                          "s1_rel_err": errors[1], "s2_rel_err": errors[2],
+                          "bit_identical_runs": 3})
+            del runs, out, expected
+    timings = {}
+    for dtype in (torch.float32, torch.float64):
+        particles, transfer_map, weights = _transport_inputs("env", dtype, generator)
+        kernel = lambda: fused_transport.TRANSPORT_MOMENTS(  # noqa: E731
+            particles, transfer_map, weights)
+        matmul = lambda: torch.matmul(particles, transfer_map.transpose(-1, -2))  # noqa: E731
+
+        def plain():
+            out = matmul()
+            return out, *_weighted_sums(out, weights)
+
+        key = str(dtype).removeprefix("torch.")
+        timings[key] = {
+            "ms": graph_ms(kernel, calls=5), "eager_ms": time_ms(kernel, runs=20, per_event=5),
+            "plain_ms": time_ms(plain, runs=10, per_event=2),
+            "plain_graph_ms": graph_ms(plain, calls=2),
+            "library_ms": graph_ms(matmul, calls=5),
+            "library_eager_ms": time_ms(matmul, runs=10, per_event=5),
+            **_transport_bound(particles, transfer_map, weights),
+        }
+        timings[key]["bound_share"] = timings[key]["bound_ms"] / timings[key]["ms"]
+        del particles, transfer_map, weights
+        torch.cuda.empty_cache()
+    emit("fused_transport", instances=ENV_INSTANCES, particles=10_000, cases=cases,
+         timings=timings)
+    return {**timings["float32"], "float64": timings["float64"]}
+
+
 def phase_env_step(ctt, wrappers) -> None:
     from cheetah_tpu_torch.lattices import ares_ea_subcell
 
@@ -1229,7 +1372,9 @@ def phase_env_step(ctt, wrappers) -> None:
     _reset_launches(wrappers)
     sigma_x = segment.track(beam).sigma_x
     launches = _launches(wrappers)
-    map_launches = _map_launches("env_step", 1)
+    # One launch builds the run's map, one transports the particles and
+    # sums their moments, which the readout takes without a pass of its own.
+    map_launches = _map_launches("env_step", 1, transports=1, reductions=0)
     check(not any(launches.values()), f"the env step launched {launches}")
     check(tuple(sigma_x.shape) == (num_instances,), f"sigma_x shape {tuple(sigma_x.shape)}")
     check(bool(torch.isfinite(sigma_x).all()), "non-finite sigma_x")
@@ -1307,8 +1452,9 @@ def phase_space_charge(ctt, wrappers) -> dict:
     _reset_launches(wrappers)
     out = segment.track(beam)
     launches = _launches(wrappers)
-    # One launch for each of the three drifts, the runs between the kicks.
-    map_launches = _map_launches("space_charge_segment", 3)
+    # One launch for each of the three drifts' maps, the runs between the
+    # kicks, and one for each drift's transport.
+    map_launches = _map_launches("space_charge_segment", 3, transports=3)
     expected = {name: 0 for name in wrappers} | {"deposit_multi_3d": 2, "gather_multi_3d": 2}
     check(launches == expected, f"space-charge segment launched {launches}, not {expected}")
     check(bool(torch.isfinite(out.particles).all()), "non-finite particles after the kicks")
@@ -1897,8 +2043,9 @@ def phase_sc_grad(ctt, wrappers, grid_shape, uses_tiled: bool) -> tuple[dict, di
     value = torch.sum(torch.square(segment.track(beam).px))
     forward = _launches(wrappers)
     # The differentiated first drift is built element by element; the
-    # other two drifts launch the kernel.
-    _map_launches(label, 2, composite=1)
+    # other two drifts launch the kernel. Every transport tracks the
+    # gradient: three matmuls.
+    _map_launches(label, 2, composite=1, matmuls=3)
     _reset_launches(wrappers)
     (grad,) = torch.autograd.grad(value, length)
     backward = _launches(wrappers)
@@ -1985,8 +2132,9 @@ def phase_env_step_grad(ctt, wrappers) -> None:
     _reset_launches(wrappers)
     _, grad = value_and_grad()
     launches = _launches(wrappers)
-    # k1 tracks a gradient: the run is built element by element.
-    _map_launches("env_step_grad", 0, composite=1)
+    # k1 tracks a gradient: the run is built element by element and the
+    # particles transported by the matmul.
+    _map_launches("env_step_grad", 0, composite=1, matmuls=1)
     check(tuple(grad.shape) == (num_instances,), f"k1 gradient shape {tuple(grad.shape)}")
     check(bool(torch.isfinite(grad).all()), "non-finite k1 gradient")
 
@@ -3618,6 +3766,7 @@ def phase_deploy(ctt, wrappers, futures) -> None:
     ``utils.profiling`` against chip_smoke's own timer."""
     import tempfile
 
+    from cheetah_tpu_torch.particles.particle_beam import _weighted_moments
     from cheetah_tpu_torch.utils import aot, profiling
 
     segment, step, beam = _deploy_step(ctt, "env_step")
@@ -3635,12 +3784,22 @@ def phase_deploy(ctt, wrappers, futures) -> None:
         other = _bench_beam(ctt, num_particles, "cuda",
                             torch.Generator(device="cuda").manual_seed(SEED + 1))
         arguments = aot.beam_arguments(other)
-        got = _counted_maps("deploy_env_step", lambda: program(*arguments), 1)
-        want = segment.track(other).sigma_x
-        built = _counted_maps("aoti_env_step", lambda: package(*arguments), 1)
+        got = _counted_maps("deploy_env_step", lambda: program(*arguments), 1, 1)
+        # An exported program keeps no moment memo (torch.export traces as
+        # torch.compile does): it sums the outgoing particles itself, in
+        # float32, where eager tracking reads the fused transport's float64
+        # sums. So it is held to eager tracking's operations that it holds,
+        # the same transport and the plain readout of its particles, and to
+        # eager's own sigma_x as the other float32 paths are.
+        outgoing = segment.track(other)
+        want = torch.sqrt(_weighted_moments(outgoing.particles,
+                                            outgoing.survival_probabilities)[1][..., 0])
+        eager = outgoing.sigma_x
+        built = _counted_maps("aoti_env_step", lambda: package(*arguments), 1, 1)
         runs[num_particles] = {
             "shape": list(got.shape),
             "rel_err_vs_eager": ((got - want).abs() / want.abs()).max().item(),
+            "rel_err_vs_eager_sums": ((got - eager).abs() / eager.abs()).max().item(),
             "aoti_shape": list(built.shape),
             "aoti_rel_err_vs_eager": ((built - want).abs() / want.abs()).max().item(),
             "loaded_ms": time_ms(lambda: program(*arguments), runs=10),
@@ -3695,6 +3854,9 @@ def phase_deploy(ctt, wrappers, futures) -> None:
             check(run[f"{how}shape"] == [4096] and run[f"{how}rel_err_vs_eager"] <= DEPLOY_RTOL,
                   f"exported env step ({how or 'loaded'}) at {num_particles}: "
                   f"{run[f'{how}shape']}, off by {run[f'{how}rel_err_vs_eager']}")
+        check(run["rel_err_vs_eager_sums"] <= ENV_STEP_RTOL,
+              f"exported env step at {num_particles}: off eager's sigma_x by "
+              f"{run['rel_err_vs_eager_sums']}")
     ratio = benchmark["mean_ms"] / own_ms
     check(1 / BENCHMARK_FACTOR <= ratio <= BENCHMARK_FACTOR,
           f"profiling.benchmark {benchmark['mean_ms']} ms against time_ms {own_ms} ms")
@@ -3708,15 +3870,18 @@ def phase_deploy(ctt, wrappers, futures) -> None:
 
 #: The operators each exported space-charge segment (two kicks) holds, by
 #: grid: the untiled pair on 32^3, the x-tiled pair and a plan for each of
-#: its autograd nodes on 128^3; on both the three drifts' maps.
+#: its autograd nodes on 128^3; on both the three drifts' maps and their
+#: transports.
 DEPLOY_SC_OPERATORS = {
     32: {"cheetah_tpu_torch.cic_deposit_multi.default": 2,
          "cheetah_tpu_torch.cic_gather_multi.default": 2,
-         "cheetah_tpu_torch.fused_run_map.default": 3},
+         "cheetah_tpu_torch.fused_run_map.default": 3,
+         "cheetah_tpu_torch.transport_moments.default": 3},
     128: {"cheetah_tpu_torch.cic_tile_plan.default": 4,
           "cheetah_tpu_torch.cic_deposit_tiled.default": 2,
           "cheetah_tpu_torch.cic_gather_tiled.default": 2,
-          "cheetah_tpu_torch.fused_run_map.default": 3},
+          "cheetah_tpu_torch.fused_run_map.default": 3,
+          "cheetah_tpu_torch.transport_moments.default": 3},
 }
 #: What the plain versions would leave in a graph: the untiled pair's
 #: index_add_ and gather, the tiled gather's scatter_ and the plan's sort
@@ -3849,11 +4014,11 @@ def phase_deploy_space_charge(ctt, wrappers, cic_kernels, cic_tiled, futures) ->
             _reset_launches(wrappers)
             got = program(*arguments)
             loaded = _launches(wrappers)
-            _map_launches(label, 3)
+            _map_launches(label, 3, transports=3)
             _reset_launches(wrappers)
             want = segment.track(other).particles
             eager = _launches(wrappers)
-            _map_launches(f"{label}_eager", 3)
+            _map_launches(f"{label}_eager", 3, transports=3)
             check(cic_tiled.tile_plan.calls == sorts, f"{label}: a plan went through torch.sort")
             check(loaded == eager == expected,
                   f"{label} at {num_particles}: loaded launched {loaded}, eager {eager}")
@@ -3872,7 +4037,7 @@ def phase_deploy_space_charge(ctt, wrappers, cic_kernels, cic_tiled, futures) ->
             _reset_launches(wrappers)
             built = package(*arguments)
             built_launches = _launches(wrappers)
-            _map_launches(f"aoti_sc_{grid[0]}", 3)
+            _map_launches(f"aoti_sc_{grid[0]}", 3, transports=3)
             check(built_launches == eager,
                   f"{label} at {num_particles}: the AOTInductor package launched "
                   f"{built_launches}, eager {eager}")
@@ -4051,7 +4216,8 @@ class _CompiledCase(NamedTuple):
     ``expected_cic`` the wrappers' launches of one step; ``repeats`` how
     many runs must give the same bits; ``expected_maps`` the fused-map
     kernel's launches of one step (none where the maps track a gradient,
-    whose composite the graph holds)."""
+    whose composite the graph holds); ``expected_transports`` the fused
+    transport's (none where the particles or the map track a gradient)."""
 
     fn: object
     call: object
@@ -4060,6 +4226,7 @@ class _CompiledCase(NamedTuple):
     expected_cic: dict
     repeats: int = 0
     expected_maps: int = 0
+    expected_transports: int = 0
 
 
 def _compiled_case(name: str, ctt, parallel, cic_kernels) -> _CompiledCase:
@@ -4113,7 +4280,8 @@ def _compiled_case(name: str, ctt, parallel, cic_kernels) -> _CompiledCase:
             return error
 
         return _CompiledCase(fn, lambda f: (f(segment, beam),), renew, compare_sigma, {},
-                             expected_maps=1)
+                             expected_maps=1,
+                             expected_transports=int(name != "parameter_beam_env_step"))
 
     if name.startswith("sc_"):
         grid = (int(name.rsplit("_", 1)[1]),) * 3
@@ -4137,7 +4305,7 @@ def _compiled_case(name: str, ctt, parallel, cic_kernels) -> _CompiledCase:
             return _CompiledCase(lambda s, b: s.track(b).particles, lambda f: (f(segment, beam),),
                                  renew, compare_kicks,
                                  {f"deposit_multi_{kind}": 2, f"gather_multi_{kind}": 2},
-                                 expected_maps=3)
+                                 expected_maps=3, expected_transports=3)
 
         def value_and_grad(f):
             length = segment.elements[0].length
@@ -4188,7 +4356,8 @@ def _compiled_case(name: str, ctt, parallel, cic_kernels) -> _CompiledCase:
             check(max(errors) <= 1.0, f"compiled env.step off eager by {errors} of its bound")
             return max(errors)
 
-        return _CompiledCase(env.step, step_call, renew, compare_step, {}, expected_maps=1)
+        return _CompiledCase(env.step, step_call, renew, compare_step, {}, expected_maps=1,
+                             expected_transports=1)
 
     def compare_grad_step(actual, expected):
         # The steps taken: the k1 gradients within their bound; the
@@ -4304,7 +4473,8 @@ def _compile_path(name: str) -> dict:
     compiled cold by its first call, held against eager, not traced again
     after ``renew()``, held again; its graphs hold no plain version's
     operator; the wrappers count ``expected_cic`` launches a step, the
-    fused-map kernel ``expected_maps``;
+    fused-map kernel ``expected_maps``, the fused transport
+    ``expected_transports``;
     ``repeats`` runs give the same bits. Then compiled with
     ``mode="reduce-overhead"`` (CUDA graphs): the calls that run and
     record the step count ``expected_cic`` launches each, its replays none;
@@ -4339,7 +4509,8 @@ def _compile_path(name: str) -> dict:
     _reset_launches(wrappers)
     case.call(compiled)
     launches = _launches(wrappers)
-    map_launches = _map_launches(label, case.expected_maps)
+    map_launches = _map_launches(label, case.expected_maps,
+                                 transports=case.expected_transports)
     expected = {name: 0 for name in wrappers} | case.expected_cic
     check(launches == expected, f"{label}: the compiled step launched {launches}")
     if case.repeats:
@@ -4377,6 +4548,7 @@ def _compile_path(name: str) -> dict:
         "compile_s": compile_s, "graphs_compile_s": graphs_compile_s,
         "compile_seconds_by_stage": stages, "errors_vs_eager": errors, "operators": operators,
         "wrapper_launches": launches, "map_launches": map_launches,
+        "transport_launches": case.expected_transports,
         "graphs_wrapper_launches_by_call": calls,
         "graph_count": len(graphs),
         "repeats_bit_for_bit": case.repeats,
@@ -4438,6 +4610,8 @@ def phase_compiled(pools, futures) -> dict:
          graphs_compile_s={name: fields["graphs_compile_s"] for name, fields in paths.items()})
     MAP_LAUNCHES.update({f"compiled_{name}": paths[name]["map_launches"]
                          for name in COMPILED_PATHS})
+    TRANSPORT_LAUNCHES.update({f"compiled_{name}": paths[name]["transport_launches"]
+                               for name in COMPILED_PATHS})
     return {f"compiled_{name}": paths[name]["wrapper_launches"]
             for name in COMPILED_PATHS if name.startswith("sc_")}
 
@@ -4523,8 +4697,9 @@ def _path_phases(ctt, wrappers, cic_kernels, cic_tiled, smi, futures) -> tuple:
     the packages of ``futures``. Returns the CIC wrappers' launches of the
     space-charge segment, and by grid those of its gradient, the line, the
     sharded gradient and the exported and AOTInductor programs; and the
-    fused-map kernel's numbers (``phase_fused_maps``)."""
-    fused_numbers = phase_fused_maps(ctt)
+    fused-map kernel's and the fused transport's numbers
+    (``phase_fused_maps``, ``phase_fused_transport``)."""
+    fused_numbers = phase_fused_maps(ctt), phase_fused_transport()
     phase_env_step(ctt, wrappers)
     segment_launches = phase_space_charge(ctt, wrappers)
     phase_env_step_grad(ctt, wrappers)
@@ -4585,11 +4760,12 @@ def main() -> int:
 
     _compile_cache()
     import cheetah_tpu_torch as ctt
-    from cheetah_tpu_torch.ops import cic_kernels, cic_tiled, fused_maps
+    from cheetah_tpu_torch.ops import cic_kernels, cic_tiled, fused_maps, fused_transport
 
     wrappers = _wrappers(cic_kernels, cic_tiled)
     smi = phase_environment()
-    phase_build([cic_kernels.LIBRARY, cic_tiled.LIBRARY, fused_maps.LIBRARY])
+    phase_build([cic_kernels.LIBRARY, cic_tiled.LIBRARY, fused_maps.LIBRARY,
+                 fused_transport.LIBRARY])
     numbers = phase_kernels(cic_kernels)
     tiled_numbers = phase_kernels_tiled(cic_kernels, cic_tiled)
     emit("deposit_crowded", particles=NUM_PARTICLES, cells=8,
@@ -4610,7 +4786,7 @@ def main() -> int:
     finally:
         _stop_compiles(pools)
     (segment_launches, grad_launches, line_launches, sharded_launches, deploy_launches,
-     fused_numbers) = paths
+     (fused_numbers, transport_numbers)) = paths
 
     def entry(name, source, replaces, measured, **extra):
         by_path = {"space_charge_segment": segment_launches[name],
@@ -4651,6 +4827,17 @@ def main() -> int:
         "name": "fused_run_map", "route": "cuda", "source": "cheetah_tpu_torch/csrc/fused_maps.cu",
         "replaces": None, "launches": map_launches, "launches_by_path": dict(MAP_LAUNCHES),
         **fused_numbers,
+    })
+    # The fused transport replaces no TPU kernel (XLA fused the JAX
+    # package's transport and moments); its plain version is the matmul and
+    # the beam's sums, its library call the matmul alone.
+    transport_launches = sum(TRANSPORT_LAUNCHES.values())
+    check(transport_launches > 0, "transport_moments was not launched on its paths")
+    kernels.append({
+        "name": "transport_moments", "route": "cuda",
+        "source": "cheetah_tpu_torch/csrc/fused_transport.cu", "replaces": None,
+        "launches": transport_launches, "launches_by_path": dict(TRANSPORT_LAUNCHES),
+        **transport_numbers,
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -41,7 +41,9 @@ KICK_BOUND = 1.3e-6
 GRIDS = {"untiled": (8, 8, 8), "tiled": (160, 40, 16)}
 #: The port's operators in the graphs: the grid's CIC operators and the
 #: drifts' maps (``fused_run_map``; the first drift's, where its length
-#: tracks a gradient, is built element by element instead).
+#: tracks a gradient, is built element by element instead). Where nothing
+#: tracks a gradient the drifts also transport the particles by
+#: ``transport_moments`` (:data:`TRANSPORT`).
 OPERATORS = {
     "untiled": {"cheetah_tpu_torch.cic_deposit_multi.default",
                 "cheetah_tpu_torch.cic_gather_multi.default",
@@ -51,6 +53,7 @@ OPERATORS = {
               "cheetah_tpu_torch.cic_gather_tiled.default",
               "cheetah_tpu_torch.fused_run_map.default"},
 }
+TRANSPORT = "cheetah_tpu_torch.transport_moments.default"
 #: What the plain versions leave in a graph: the deposit's index_add_, the
 #: gather's gather, the tiled gather's scatter_, the plan's sort and
 #: searchsorted (the kick's own out-of-place index_add is aten.index_add).
@@ -58,14 +61,15 @@ PLAIN_TARGETS = ("aten.index_add_.", "aten.gather.", "aten.scatter_.", "aten.sor
                  "aten.searchsorted.")
 
 
-def _assert_kernel_operators(graphs, grid):
+def _assert_kernel_operators(graphs, grid, transport=False):
     """Every graph holds no plain version's operator, and together they
-    call each of the grid's operators."""
+    call each of the grid's operators (and, with ``transport``, the fused
+    transport)."""
     called = set()
     for graph in graphs:
         assert not [target for target in graph if target.startswith(PLAIN_TARGETS)], graph
         called |= {target for target in graph if target.startswith("cheetah_tpu_torch.")}
-    assert called == OPERATORS[grid]
+    assert called == OPERATORS[grid] | ({TRANSPORT} if transport else set())
 
 
 
@@ -92,8 +96,9 @@ def _jax_sc_track(length, segment, beam):
 @pytest.mark.parametrize("grid", sorted(GRIDS))
 def test_space_charge_segment_compiles_on_the_operators(sc_beams, grid):
     """Path 4: the segment's particles, the first drift's length assigned
-    between calls; the graph calls the CIC operators, never their plain
-    versions, and the kicks agree with the JAX package's jitted kicks."""
+    between calls; the graph calls the CIC operators and the fused
+    transport, never their plain versions, and the kicks agree with the JAX
+    package's jitted kicks."""
     jax_beam, beam = sc_beams
     jax_segment = _jax_sc_segment(GRIDS[grid])
     segment = segment_to_torch(jax_segment)
@@ -107,7 +112,7 @@ def test_space_charge_segment_compiles_on_the_operators(sc_beams, grid):
     results = _compiled_matches_eager(lambda s, b: s.track(b).particles, run, lengths,
                                       backend=_recording(graphs))
     assert len(graphs) == 1
-    _assert_kernel_operators(graphs, grid)
+    _assert_kernel_operators(graphs, grid, transport=True)
     jitted = jax.jit(_jax_sc_track)
     drifted = segment_to_torch(ct.Segment([ct.Drift(jnp.asarray(0.5, jnp.float64))]))
     for (particles,), length in zip(results, lengths):

@@ -37,15 +37,18 @@ GRIDS = {"8": (8, 8, 8), "128": (128, 128, 128)}
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
 #: The operators of the exported segment (one kick), by grid: the untiled
 #: pair on 8^3; on 128^3 the x-tiled pair and the plan of each of its two
-#: autograd nodes; on both each drift's map (``fused_run_map``).
+#: autograd nodes; on both each drift's map (``fused_run_map``) and its
+#: particles' transport with their moment sums (``transport_moments``).
 OPERATORS = {
     "8": {"cheetah_tpu_torch.cic_deposit_multi.default": 1,
           "cheetah_tpu_torch.cic_gather_multi.default": 1,
-          "cheetah_tpu_torch.fused_run_map.default": 2},
+          "cheetah_tpu_torch.fused_run_map.default": 2,
+          "cheetah_tpu_torch.transport_moments.default": 2},
     "128": {"cheetah_tpu_torch.cic_tile_plan.default": 2,
             "cheetah_tpu_torch.cic_deposit_tiled.default": 1,
             "cheetah_tpu_torch.cic_gather_tiled.default": 1,
-            "cheetah_tpu_torch.fused_run_map.default": 2},
+            "cheetah_tpu_torch.fused_run_map.default": 2,
+            "cheetah_tpu_torch.transport_moments.default": 2},
 }
 #: What the plain versions leave in a graph: the deposit's index_add_, the
 #: gather's gather, the tiled gather's scatter_, the plan's sort and

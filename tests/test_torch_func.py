@@ -30,6 +30,7 @@ from cheetah_tpu.ops import transfer_maps as jax_maps
 from cheetah_tpu.ops.pallas_cic import cic_deposit_multi_p, cic_gather_multi_p
 from cheetah_tpu.utils import maths as jax_maths
 import cheetah_tpu_torch as ctt
+from cheetah_tpu_torch.accelerator.segment import run_transfer_map
 from cheetah_tpu_torch.ops import cic_kernels, transfer_maps
 from cheetah_tpu_torch.utils import maths
 from test_torch_tracking import beam_to_torch, segment_to_torch
@@ -544,3 +545,36 @@ def test_vmap_and_grad_over_cavity_voltage_match_jax():
         expected = jax.jit(jax.grad(jax_sigma_x))(jnp.asarray(voltage), jax_segment)
         assert grad.item() == pytest.approx(float(expected), rel=1e-9)
     assert segment.cav.is_skippable is False
+
+
+def test_constants_made_inside_a_transform_are_not_cached():
+    """The map builders' cached constants (``utils.device.constant_cache``)
+    are built anew inside a ``torch.func`` transform: a tensor made there is
+    the transform's wrapper, whose storage is gone once it ends, so caching
+    it broke later compiled maps of the same shape ("Cannot access storage
+    of TensorWrapper")."""
+    quadrupole = ctt.Quadrupole(0.2, k1=3.0, dtype=F64, device=CPU)
+    energy = torch.tensor(1e8, dtype=F64)
+    species = ctt.Species("electron", dtype=F64, device=CPU)
+    # A vector shape no other test builds, so the first build of its
+    # constants happens inside the transform.
+    k1 = torch.linspace(-4.0, 4.0, 5, dtype=F64).reshape(5, 1, 1, 1)
+
+    def trace(k1):
+        quadrupole.k1 = k1
+        return quadrupole.first_order_transfer_map(energy, species)[..., 0, 0].sum()
+
+    grad = func.grad(trace)(k1)
+    quadrupole.k1 = k1
+    # A compiled program runs the fused-map operator's plain version, which
+    # cannot read a dead wrapper's storage.
+    torch._dynamo.reset()
+    try:
+        compiled = torch.compile(lambda q, e: run_transfer_map([q], e, species),
+                                 backend="aot_eager", fullgraph=True)
+        fused = compiled(quadrupole, energy)
+    finally:
+        torch._dynamo.reset()
+    eager = quadrupole.first_order_transfer_map(energy, species)
+    assert fused.shape == eager.shape == (5, 1, 1, 1, 7, 7) and grad.shape == k1.shape
+    assert torch.equal(fused, eager) and torch.isfinite(grad).all()
